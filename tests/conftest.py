@@ -35,6 +35,11 @@ def pytest_configure(config):
         "markers",
         "slow: slowest mesh-parity tests; deselect locally with "
         '-m "not slow"')
+    # port tests of a CUDA kernel, which has no CPU mode: they skip without
+    # a card and are run on the GPU with `pytest -m cuda tests/test_torch_*.py`
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips where there is none")
 
 
 @pytest.fixture(scope="session")
