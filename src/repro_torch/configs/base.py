@@ -1,15 +1,26 @@
-"""Configuration dataclasses for the port: the Dom-ST subset of the
-reference's ``configs/base.py``.
+"""Configuration dataclasses for the port: a copy of what the Dom-ST and
+the dense-decoder paths read of the reference's ``configs/base.py``.
 
-``PixConConfig`` and ``DomSTConfig`` are field-for-field copies;
-``ModelConfig`` keeps only the fields the Dom-ST family reads. Configs are
-pure data and never touch a device.
+``PixConConfig``, ``DomSTConfig`` and ``ModelConfig`` are field-for-field
+copies, with the same defaults and the same helpers (``padded_vocab``,
+``resolved_head_dim``, ``layer_kinds``, ``supports_decode``). The MoE,
+SSM and RG-LRU sub-configs are not ported yet: their fields are kept so
+a config reads alike, and the model raises ``NotImplementedError`` where
+it would need them. Configs are pure data and never touch a device.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence, Tuple
+
+# Layer kinds understood by models/transformer.py
+ATTN_GLOBAL = "global"          # full (causal or bidirectional) attention
+ATTN_LOCAL = "local"            # sliding-window attention
+RECURRENT = "recurrent"         # RG-LRU recurrent block (recurrentgemma)
+SSM = "ssm"                     # Mamba-2 SSD block
+
+LAYER_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, SSM)
 
 
 @dataclass(frozen=True)
@@ -47,13 +58,81 @@ class DomSTConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description, cut down to what the Dom-ST family uses."""
+    """Architecture description.
+
+    ``family`` selects the top-level model builder:
+      dense | moe | ssm | hybrid | encoder | vlm | audio | domst
+    The port runs the ``domst`` family and the dense decoders.
+    """
 
     name: str
     family: str
-    causal: bool = True
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0                 # 0 -> d_model // num_heads
+    d_ff: int = 0
+    vocab_size: int = 0
+
+    # stack details
+    layer_pattern: Tuple[str, ...] = (ATTN_GLOBAL,)
+    window: int = 4096                # sliding window for ATTN_LOCAL
+    norm: str = "rmsnorm"             # rmsnorm | layernorm | nonparam_ln
+    act: str = "silu"                 # silu | gelu
+    qkv_bias: bool = False            # qwen2-style
+    qk_norm: bool = False             # qwen3-style QK-RMSNorm
+    tie_embeddings: bool = True
+    rope_theta: float = 10000.0
+    rope: bool = True
+    logit_softcap: float = 0.0        # gemma2 final-logit softcap
+    attn_softcap: float = 0.0         # gemma2 attention-logit softcap
+    post_norms: bool = False          # gemma2 pre+post sandwich norms
+    embed_scale: bool = False         # gemma-style sqrt(d_model) embed scaling
+    causal: bool = True               # False for encoder-only (hubert)
+
+    # sub-configs (MoE, SSM and RG-LRU are not ported: kept opaque)
+    moe: Optional[Any] = None
+    ssm: Optional[Any] = None
+    rglru: Optional[Any] = None
+    pixcon: Optional[PixConConfig] = None
     domst: Optional[DomSTConfig] = None
-    source: str = ""                  # citation
+    first_k_dense: int = 0            # deepseek-moe: first k layers use dense FFN
+
+    # modality frontends (stubs that provide embeddings)
+    frontend: Optional[str] = None    # None | "audio_stub" | "vision_stub"
+    frontend_dim: int = 0             # raw embedding dim fed by the stub
+    num_patches: int = 0              # vlm: image patch tokens per example
+
+    # optional generalized contribution gate (paper technique on LM archs)
+    contribution_gate: bool = False
+
+    tp_mode: str = "heads"            # sharding preference of the reference
+
+    source: str = ""                  # citation (arXiv / hf card)
+    notes: str = ""
+
+    def padded_vocab(self, multiple: int = 128) -> int:
+        """Vocab rounded up to ``multiple`` (the reference pads it so the
+        embedding shards); padded logit columns are masked in unembed."""
+        v = self.vocab_size
+        return ((v + multiple - 1) // multiple) * multiple
+
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        if self.num_heads:
+            return self.d_model // self.num_heads
+        return 0
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer kind list, pattern repeated/truncated to num_layers."""
+        pat = self.layer_pattern
+        reps = (self.num_layers + len(pat) - 1) // len(pat)
+        return tuple((pat * reps)[: self.num_layers])
+
+    def supports_decode(self) -> bool:
+        return self.causal and self.family not in ("encoder", "audio", "domst")
 
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

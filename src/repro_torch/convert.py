@@ -15,6 +15,13 @@ layout:
 
 Only the trailing axes change, so stacked and unstacked leaves convert
 alike.
+
+An LM tree (one with an ``embed`` subtree) converts by
+:func:`lm_params_from_jax`: the reference scans a ``blocks`` subtree whose
+leaves carry a leading layer-repetition axis, and the port keeps one
+nested dict per layer, so that axis is unstacked into the list
+``layers`` (prefix layers, the repetitions pattern by pattern, then the
+suffix). Leaves keep the reference's shapes and names.
 """
 from __future__ import annotations
 
@@ -51,9 +58,43 @@ def to_port_layout(key: str, arr: np.ndarray) -> np.ndarray:
 
 
 def params_from_jax(tree: Mapping[str, Any], device: str | torch.device = "cpu"
-                    ) -> Dict[str, torch.Tensor]:
-    """Reference parameter tree (nested dict of numpy arrays, stacked or
-    not) -> the port's flat dict of float32 tensors on ``device``."""
+                    ) -> Dict[str, Any]:
+    """Reference parameter tree (nested dict of numpy arrays) -> the port's
+    float32 tensors on ``device``: for Dom-ST (stacked or not) a flat dict
+    keyed by path, for an LM the per-layer tree of
+    :func:`lm_params_from_jax`."""
+    if "embed" in tree:
+        return lm_params_from_jax(tree, device)
     return {k: torch.as_tensor(to_port_layout(k, np.array(v, np.float32)),
                                device=device).contiguous()
             for k, v in flatten(tree).items()}
+
+
+def lm_params_from_jax(tree: Mapping[str, Any],
+                       device: str | torch.device = "cpu") -> Dict[str, Any]:
+    """Reference LM tree (``embed``, ``final_norm``, optional ``prefix`` /
+    ``suffix`` tuples, ``blocks`` stacked over repetitions) -> ``{"embed",
+    "final_norm", "layers": [per-layer dict, ...]}`` of float32 tensors."""
+    def leaf(v):
+        return torch.as_tensor(np.array(v, np.float32), device=device).contiguous()
+
+    def nested(t):
+        return {k: nested(v) if isinstance(v, Mapping) else leaf(v)
+                for k, v in t.items()}
+
+    for key in ("frontend", "gate"):
+        if key in tree:
+            raise NotImplementedError(f"LM params with '{key}' are not ported")
+    layers = [nested(lp) for lp in tree.get("prefix", ())]
+    if "blocks" in tree:
+        blocks = tree["blocks"]
+        pattern = sorted(blocks, key=int)
+        n_rep = len(np.asarray(next(iter(flatten(blocks[pattern[0]]).values()))))
+        for r in range(n_rep):
+            for i in pattern:
+                layers.append({k: {n: leaf(np.asarray(a)[r]) for n, a in
+                                   flatten(g).items()}
+                               for k, g in blocks[i].items()})
+    layers += [nested(lp) for lp in tree.get("suffix", ())]
+    return {"embed": nested(tree["embed"]),
+            "final_norm": nested(tree["final_norm"]), "layers": layers}

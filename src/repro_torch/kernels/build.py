@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("pixcon", "lstm_cell")
+SOURCES = ("pixcon", "lstm_cell", "paged_attn")
 # No --use_fast_math: the kernels are held to their plain versions at fp32
 # tolerances, and expf/tanhf must stay the accurate library functions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

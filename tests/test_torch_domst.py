@@ -43,7 +43,7 @@ def _np_tree(tree):
 
 
 def test_configs_match_reference():
-    assert list_configs() == sorted(VARIANTS)
+    assert list_configs() == sorted(VARIANTS + ("qwen2-1.5b",))
     for name in VARIANTS:
         j, t = j_get_config(name), get_config(name)
         assert (t.name, t.family, t.causal) == (j.name, j.family, j.causal)

@@ -8,7 +8,9 @@ reference package, so they also run on a GPU machine without JAX:
 
 fp32, atol 1e-5: the kernels sum in another order than PyTorch, except
 the Pix-Con weights, which must agree to the bit (the partitioner ranks
-pixels by them).
+pixels by them). Paged attention in bf16: atol 2e-2, one bf16 ulp at
+|out| < 4, since a score summed in another order can round through bf16
+to the neighbouring value.
 """
 import pytest
 
@@ -89,3 +91,79 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="must be"):
         lstm_cell_fused(_rn(g, dev, 2, 1, 8), hx, hx, _rn(g, dev, 2, 8, 4, 16),
                         _rn(g, dev, 2, 16, 4, 16), _rn(g, dev, 2, 4, 8))
+
+
+def _paged_case(g, dev, dtype, B, T, Hq, Hkv, D, ps, n, lens):
+    """A pool in shuffled page order with ``lens[b]`` cached tokens per
+    slot, a recycled entry, unassigned pages and queries at the last T
+    positions of each slot (a slot with no tokens attends to nothing)."""
+    need = [-(-l // ps) for l in lens]
+    P = sum(need) + 3
+    perm = iter(torch.randperm(P, generator=g).tolist())
+    pos = torch.full((P, ps), -1, dtype=torch.int32)
+    rows = torch.full((B, n), -1, dtype=torch.int32)
+    for b, l in enumerate(lens):
+        for j in range(need[b]):
+            p = next(perm)
+            rows[b, j] = p
+            fill = min(ps, l - j * ps)
+            pos[p, :fill] = torch.arange(j * ps, j * ps + fill)
+    if need[0] > 1:
+        pos[rows[0, 1], 0] = -1
+    qpos = torch.stack([torch.arange(max(l, T) - T, max(l, T)) for l in lens])
+    return dict(q=_rn(g, dev, B, T, Hq, D).to(dtype),
+                k_pool=_rn(g, dev, P, ps, Hkv, D).to(dtype),
+                v_pool=_rn(g, dev, P, ps, Hkv, D).to(dtype),
+                pos_pool=pos.to(dev), page_rows=rows.to(dev),
+                qpos=qpos.to(torch.int32).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("T,Hq,Hkv,D,ps,window,softcap", [
+    (1, 12, 2, 128, 16, 0, 0.0),       # qwen2-1.5b decode
+    (4, 12, 2, 128, 16, 0, 0.0),       # verify, spec_k=3
+    (128, 12, 2, 128, 16, 0, 0.0),     # a prefill chunk
+    (7, 4, 1, 64, 4, 5, 50.0),         # window + softcap, small pages
+    (3, 8, 8, 64, 32, 0, 30.0),        # no GQA, 32-key pages
+    (2, 4, 2, 256, 8, 3, 0.0),
+])
+def test_paged_attn_kernel_matches_plain(dev, dtype, atol, T, Hq, Hkv, D, ps,
+                                         window, softcap):
+    """float32 within 1e-5 (sums in another order); bfloat16 within 2e-2,
+    one bfloat16 ulp at |out| < 4 (a score can round the other way)."""
+    from repro_torch.kernels.paged_attn import ops
+    from repro_torch.kernels.paged_attn.ref import paged_attention_ref
+    g = torch.Generator().manual_seed(T * 1000 + D + ps)
+    lens = [37, 0, 5, 130]
+    n = -(-max(lens) // ps) + 1
+    a = _paged_case(g, dev, getattr(torch, dtype), 4, T, Hq, Hkv, D, ps, n,
+                    lens)
+    before = ops.paged_attention_fused.launches
+    out = ops.paged_attention_fused(**a, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert ops.paged_attention_fused.launches == before + 1
+    ref = paged_attention_ref(**a, window=window, softcap=softcap)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    assert not out[1].any()            # slot 1 has no page
+
+
+@pytest.mark.cuda
+def test_paged_attn_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.paged_attn.ops import paged_attention_fused
+    g = torch.Generator().manual_seed(0)
+    a = _paged_case(g, dev, torch.float32, 2, 1, 4, 2, 64, 4, 3, [5, 9])
+    with pytest.raises(TypeError, match="int32"):
+        paged_attention_fused(**{**a, "qpos": a["qpos"].long()})
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        paged_attention_fused(**{**a, "q": a["q"].half()})
+    with pytest.raises(ValueError, match="page size"):
+        b = _paged_case(g, dev, torch.float32, 2, 1, 4, 2, 64, 6, 3, [5, 9])
+        paged_attention_fused(**b)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention_fused(**{**a, "q": a["q"][..., :48].contiguous(),
+                                 "k_pool": a["k_pool"][..., :48].contiguous(),
+                                 "v_pool": a["v_pool"][..., :48].contiguous()})
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_attention_fused(**{**a, "q": a["q"].transpose(2, 3)
+                                 .contiguous().transpose(2, 3)})
