@@ -7,17 +7,24 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
 
 1. the card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel of the port's paths from ``src/repro_torch/
-   kernels/csrc``, timed (one ``nvcc`` per source, all at once);
+   kernels/csrc``, timed (one ``nvcc`` per source, all six at once);
 2. each kernel against its plain PyTorch version on the card, at its
-   main path's shapes and at ragged ones, 1e-5 abs in fp32: Pix-Con (also
-   ``normalize=False`` and a temperature other than 1), the LSTM step, and
-   paged attention (decode, verify and a 128-token prefill chunk of
-   qwen2-1.5b, in bf16 within 2e-2 as well, plus small shapes with a
-   window, a softcap, unassigned pages and an empty row); the time of a
-   launch, of the plain version and of one PyTorch call computing the
-   same function where there is one (``torch.lstm_cell``;
+   main path's shapes and at ragged ones, 1e-5 abs in fp32 (bf16 within
+   2e-2, one bf16 ulp at |out| < 4): Pix-Con (also ``normalize=False``
+   and a temperature other than 1), the LSTM step, paged attention
+   (decode, verify and a 128-token prefill chunk of qwen2-1.5b, plus small
+   shapes with a window, a softcap, unassigned pages and an empty row),
+   the causal conv1d (mamba2-130m's and recurrentgemma-2b's prefill and
+   step shapes, C not a multiple of 128, S=1 with a tail, S > 2,048, S <
+   K-1), the SSD chunk (mamba2-130m's 512-token prefill, Q in {5, 200,
+   256}) and local attention (recurrentgemma-2b's 2,560- and 600-token
+   prefills, S not a tile multiple, non-causal, Hkv = Hq and MQA); the
+   time of a launch, of the plain version and of one PyTorch call
+   computing the same function where there is one (``torch.lstm_cell``;
    ``scaled_dot_product_attention`` over K/V gathered beforehand, the
-   gather timed apart) — yardsticks only: the port never calls them;
+   gather timed apart, or with a boolean band mask; ``F.conv1d`` with
+   ``groups=C``, SiLU timed apart) — yardsticks only: the port never
+   calls them — beside the bound;
 3. the Dom-ST main path: the Forecaster at full width (the ``domst``
    config, 23 watersheds, 400 days, 74 held-out days), params from the
    port's init with a fixed seed. With the launch counts set to 0 it runs
@@ -38,9 +45,9 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    the port's Scheduler three times — whole-prompt prefill, 128-token
    prefill chunks, ``spec_k=3`` with the n-gram drafter — each with the
    launch counts set to 0 just before and read just after (paged_attn
-   must be > 0, the Dom-ST kernels 0), printing tok/s, decode tok/s,
-   TTFT p50 and, from a profiled repeat, the device time by kernel. Then
-   the kernel against its plain version end to end: one bf16
+   must be > 0, every other kernel 0), printing tok/s, decode tok/s, TTFT
+   p50 and, from a profiled repeat of whole prefill, the device time by
+   kernel. Then the kernel against its plain version end to end: one bf16
    ``decode_step_paged`` on the admitted state (logits within 2^-5 of
    their largest magnitude) and the share of equal tokens in bf16
    streams; in fp32, one decode step's logits, kernel against plain and
@@ -50,9 +57,28 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    (within 2e-3 of the output's largest magnitude), and the greedy
    streams, kernel against plain, equal in all three modes on the same
    weights with the attention projections rescaled to unit variance;
-5. one JSON line listing every ported kernel with its error, times, bound
-   and launches, then the line with the card's name and power limit;
-6. the last line, ``{"ok": true, "device": {...}}``.
+5. recurrentgemma-2b at full width (26 layers, d 2,560, vocab 256,000,
+   random weights from the port's init, seed 0, bf16, 16-token pages) on
+   4 slots: whole-prompt prefill of prompts of 2,560/2,300/600/512 tokens
+   (past the 2,048-token window), and 128-token chunks and ``spec_k=3``
+   on prompts of 512/510/508/506 tokens, 32 new tokens each; launch
+   counts per mode (whole and spec, which admits each prompt whole:
+   local_attn, conv1d, paged_attn > 0; chunked: conv1d, paged_attn > 0,
+   local_attn 0; ssd_chunk and the Dom-ST kernels 0), tok/s, decode tok/s, TTFT p50/p99, the device time
+   by kernel of a profiled repeat of whole prefill; then the kernels
+   against their plain versions: one bf16 decode step's logits on the
+   admitted state (2^-5), every launch of an fp32 whole-prefill run held
+   against the plain versions (2e-3), and fp32 greedy streams, kernels
+   against plain, equal on the weights with rescaled attention
+   projections (on the main path's weights printed);
+6. mamba2-130m at full width (24 layers, d 768, state 128, chunk 256):
+   qwen2-1.5b's queue in the three modes (whole and spec: ssd_chunk and
+   conv1d > 0; chunked: ssd_chunk 0; every mode: paged_attn 0), the same measurements and checks, its
+   profiled repeat one wave of 4 requests x 32 tokens;
+7. one JSON line listing every ported kernel with its error, times, bound
+   and launches (by model and mode), then the line with the card's name
+   and power limit;
+8. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card. Without CUDA, or run from a directory that does not
 hold the repository's ``src/repro_torch``, it exits non-zero and prints no
@@ -85,14 +111,43 @@ TIMED_CALLS = 7      # warm forecasts timed; the median is reported
 # LM serving: qwen2-1.5b at full width, 8 requests on 4 slots, prompts of
 # 512/510/508/506 tokens, 64 new tokens each, 16-token pages
 LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_GEN, LM_SEED = 8, 4, 512, 64, 0
+LM_LENS = [LM_PROMPT - (i % 4) * 2 for i in range(LM_REQUESTS)]
 LM_MAX_LEN = LM_PROMPT + LM_GEN
 LM_CHUNK, LM_SPEC_K = 128, 3
-ATOL_PAGED_BF16 = 2e-2   # one bf16 ulp at |out| < 4: a score rounds the other way
-REL_LOGITS_BF16 = 2 ** -5  # of the largest |logit|: a few bf16 ulps over 28 layers
-# fp32 paged attention on the main path's activations, of the output's
-# largest |value|: scores there reach ~1e3, where a float32 ulp is ~1e-4,
-# and a softmax weight moves by the score's rounding
-REL_PAGED_F32 = 2e-3
+# The recurrent models' queues on 4 slots, by mode, and the queue of the
+# profiled repeat of whole prefill. recurrentgemma-2b: whole prefill with
+# prompts past its 2,048-token window (local_attn's band, the ring-to-pages
+# fill and paged_attn's window all do real work); chunked prefill and
+# speculative verify step each recurrent layer through a prompt's tokens,
+# so they take 512-token prompts. mamba2-130m: qwen2-1.5b's queue in all
+# three modes; its profiled repeat is one wave (4 requests, 32 tokens):
+# the profiler's post-processing of the whole queue's ~150,000 launches
+# would cost about a minute.
+RG_STEP_LENS = LM_LENS[:4]
+RECURRENT_RUNS = {
+    "recurrentgemma-2b": {
+        "lens": {"whole": [2560, 2300, 600, 512], "chunked": RG_STEP_LENS,
+                 "spec": RG_STEP_LENS},
+        "gen": 32, "profile": ([2560, 2300, 600, 512], 32)},
+    "mamba2-130m": {
+        "lens": {"whole": LM_LENS, "chunked": LM_LENS, "spec": LM_LENS},
+        "gen": LM_GEN, "profile": (LM_LENS[:4], 32)},
+}
+# bf16 outputs: one bf16 ulp at |out| < 4, where a float32 result (or a
+# score rounded through bf16) that differs in its last bit rounds the other way
+ATOL_BF16 = 2e-2
+REL_LOGITS_BF16 = 2 ** -5  # of the largest |logit|: a few bf16 ulps over the layers
+# fp32 kernels on the main path's activations, of the output's largest
+# |value|: attention scores there reach ~1e3, where a float32 ulp is
+# ~1e-4, and a softmax weight moves by the score's rounding
+REL_F32 = 2e-3
+# The speculative mode's weights: unit-variance attention projections and
+# every layer's output projection scaled by DAMP (see ``damped``). Each
+# layer then adds ~1e-3 a channel to a residual stream whose embedding is
+# ~2e-2 a channel (std 0.02 without an embedding scale, qwen2 and mamba2;
+# ~1 with one, recurrentgemma). Under the init law alone an attention
+# layer adds ~1e2 a channel (``well_conditioned``), too much to damp.
+DAMP, DAMPED = 1e-3, ("wo", "w_down", "w_out")
 
 
 def fail(msg: str) -> None:
@@ -531,7 +586,7 @@ def gathered_mask(a, window=0):
     return k, v, mask[:, None]
 
 
-def paged_work(a) -> tuple[float, float]:
+def paged_work(a, window=0) -> tuple[float, float]:
     """Bytes the function must move (the assigned pages' K/V rows of
     every KV head and their positions, q, out, the page rows and query
     positions, each once) and its operations (q.k and p.v over the keys
@@ -543,40 +598,55 @@ def paged_work(a) -> tuple[float, float]:
     pages = int((a["page_rows"] >= 0).sum())
     nbytes = (pages * ps * (2 * Hkv * D * esize + 4) + 2 * a["q"].numel() * esize
               + 4 * (a["page_rows"].numel() + a["qpos"].numel()))
-    _, _, mask = gathered_mask(a)
+    _, _, mask = gathered_mask(a, window)
     keys = int(mask.sum()) * Hq            # attendable (row, key) pairs
     return nbytes, 4.0 * keys * D
 
 
 def check_paged_attn(g, dev) -> dict:
     """The paged-attention kernel against its plain version at the LM main
-    path's three shapes (decode T=1 and verify T=4 over 4 slots, a
-    128-token prefill chunk of one slot; qwen2-1.5b's 12 query heads on 2
-    KV heads, D=128, 16-token pages, 36 pages a slot) in bf16 and fp32,
-    and at small shapes with a window, a softcap, unassigned pages and an
-    empty row; then times at the main shapes."""
+    paths' shapes in bf16 and fp32: decode T=1 and verify T=4 over 4
+    slots, a 128-token prefill chunk of one slot, for qwen2-1.5b (12 query
+    heads on 2 KV heads, D=128, no window, 36 pages a slot) and for
+    recurrentgemma-2b's local layers (10 on 1, D=256, window 2,048, 162
+    pages a slot), all with 16-token pages; and at small shapes with a
+    window, a softcap, unassigned pages and an empty row. Then times at
+    the main shapes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attn.ops import paged_attention_fused
     from repro_torch.kernels.paged_attn.ref import paged_attention_ref
     Hq, Hkv, D, PS, N = 12, 2, 128, 16, LM_MAX_LEN // 16
     mid = [LM_PROMPT + LM_GEN // 2 - 2 * i for i in range(4)]   # mid-decode
-    main = {"decode": dict(B=4, T=1, lens=mid),
-            "verify": dict(B=4, T=LM_SPEC_K + 1, lens=mid),
+    qwen = dict(Hq=Hq, Hkv=Hkv, D=D, ps=PS, n=N, window=0, softcap=0.0)
+    main = {"decode": dict(B=4, T=1, lens=mid, **qwen),
+            "verify": dict(B=4, T=LM_SPEC_K + 1, lens=mid, **qwen),
             "chunk": dict(B=1, T=LM_CHUNK, lens=[3 * LM_CHUNK],
-                          qpos_end=[3 * LM_CHUNK])}
+                          qpos_end=[3 * LM_CHUNK], **qwen)}
+    # recurrentgemma-2b's local layers: 10 query heads on 1 KV head, D=256,
+    # a 2,048-token window, page rows as long as its whole-prefill queue's
+    # (2,560 + 32 tokens); mid-decode past the window, and a 128-token
+    # chunk ending at 2,560, where the window masks the first 512 keys
+    rg_whole = RECURRENT_RUNS["recurrentgemma-2b"]["lens"]["whole"]
+    rg_gen = RECURRENT_RUNS["recurrentgemma-2b"]["gen"]
+    rg = dict(Hq=10, Hkv=1, D=256, ps=16, window=2048, softcap=0.0,
+              n=-(-(max(rg_whole) + rg_gen) // 16))
+    rg_mid = [n + rg_gen // 2 for n in rg_whole]
+    main.update({
+        "rg_decode": dict(B=4, T=1, lens=rg_mid, **rg),
+        "rg_verify": dict(B=4, T=LM_SPEC_K + 1, lens=rg_mid, **rg),
+        "rg_chunk": dict(B=1, T=LM_CHUNK, lens=[max(rg_whole)],
+                         qpos_end=[max(rg_whole)], **rg)})
     small = [dict(B=3, T=7, Hq=4, Hkv=1, D=64, ps=4, n=6, lens=[13, 0, 9],
                   window=5, softcap=50.0),
              dict(B=2, T=3, Hq=8, Hkv=2, D=128, ps=16, n=3, lens=[20, 33],
                   window=0, softcap=30.0)]
     err = {"float32": 0.0, "bfloat16": 0.0}
     for dtype, atol in ((torch.float32, ATOL_KERNEL),
-                        (torch.bfloat16, ATOL_PAGED_BF16)):
+                        (torch.bfloat16, ATOL_BF16)):
         # the main shapes, and the chunk's T over 4 slots as well
-        wide = dict(B=4, T=LM_CHUNK, lens=mid)
-        cases = [(name, dict(Hq=Hq, Hkv=Hkv, D=D, ps=PS, n=N, window=0,
-                             softcap=0.0, **c))
-                 for name, c in [*main.items(), ("chunk_4slots", wide)]]
+        wide = dict(B=4, T=LM_CHUNK, lens=mid, **qwen)
+        cases = [*main.items(), ("chunk_4slots", wide)]
         cases += [(f"small{i}", c) for i, c in enumerate(small)]
         for name, c in cases:
             kw = dict(window=c["window"], softcap=c["softcap"])
@@ -600,22 +670,25 @@ def check_paged_attn(g, dev) -> dict:
     shapes = []
     for dtype in (torch.bfloat16, torch.float32):
         for name, c in main.items():
-            a = paged_inputs(g, dev, dtype, c["B"], c["T"], Hq, Hkv, D, PS,
-                             N, c["lens"], c.get("qpos_end"))
-            ms = time_ms(lambda: paged_attention_fused(**a))
-            plain_ms = time_ms(lambda: paged_attention_ref(**a), iters=50)
-            gather_ms = time_ms(lambda: gathered_mask(a), iters=50)
-            k, v, mask = gathered_mask(a)
+            kw = dict(window=c["window"])
+            a = paged_inputs(g, dev, dtype, c["B"], c["T"], c["Hq"], c["Hkv"],
+                             c["D"], c["ps"], c["n"], c["lens"],
+                             c.get("qpos_end"))
+            ms = time_ms(lambda: paged_attention_fused(**a, **kw))
+            plain_ms = time_ms(lambda: paged_attention_ref(**a, **kw),
+                               iters=50)
+            gather_ms = time_ms(lambda: gathered_mask(a, **kw), iters=50)
+            k, v, mask = gathered_mask(a, **kw)
             q = a["q"].transpose(1, 2)
 
             def lib():
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                       enable_gqa=True)
             lib_err = max_err(lib().transpose(1, 2).float(),
-                              paged_attention_fused(**a).float())
+                              paged_attention_fused(**a, **kw).float())
             lib_ms = time_ms(lib)
             # bf16 inputs: the tensor cores' bf16 rate; fp32: the CUDA cores'
-            b_ms, b_by = bound_ms(*paged_work(a), BF16_OPS_PER_S
+            b_ms, b_by = bound_ms(*paged_work(a, **kw), BF16_OPS_PER_S
                                   if dtype == torch.bfloat16 else FP32_OPS_PER_S)
             tag = str(dtype).split(".")[-1]
             row = {"shape": name, "dtype": tag, "B": c["B"], "T": c["T"],
@@ -643,48 +716,359 @@ def check_paged_attn(g, dev) -> dict:
             "by_shape": shapes}
 
 
-def lm_requests(vocab: int) -> list:
-    """The launcher's synthetic queue (``make_requests``): LM_REQUESTS
-    prompts of 512, 510, 508 and 506 tokens (``--ragged``), LM_GEN new
-    tokens each."""
-    from types import SimpleNamespace
-    from repro_torch.launch.serve import make_requests
-    return make_requests(SimpleNamespace(vocab_size=vocab), SimpleNamespace(
-        requests=LM_REQUESTS, prompt_len=LM_PROMPT, ragged=True, gen=LM_GEN,
-        seed=LM_SEED))
-
-
-def serve_once(cfg, dev, params, dtype, mode: dict, ops=None,
-               profile: bool = False) -> dict:
-    """One served run of the queue through the port's Scheduler with the
-    launch counts set to 0 just before and read just after. Returns the
-    streams, the stats, tok/s, decode tok/s, TTFT p50 and the launches."""
+# ---------------------------------------------------------------------------
+# Phase 2: conv1d, ssd_chunk and local attention
+# ---------------------------------------------------------------------------
+def rn(g, dev, *shape, s=1.0):
     import torch
+    return (torch.randn(shape, generator=g) * s).to(dev)
+
+
+def check_kernel_case(name, tag, out, ref, atol) -> float:
+    """Largest abs difference over the output(s), printed and checked."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    e = max(max_err(o.float(), r.float()) for o, r in zip(outs, refs))
+    print(f"  {name} {tag}: max_abs_err={e:.3e}")
+    check(e <= atol, f"{name} {tag}: error {e} > {atol}")
+    return e
+
+
+def conv1d_work(B, S, C, K, esize, silu) -> tuple[float, float]:
+    """Bytes (x, w, b read once, y written once) and fp32 operations (K
+    multiplies and adds, the bias, and SiLU's exp, add, divide, multiply)
+    of one causal conv."""
+    nbytes = esize * (2 * B * S * C + K * C + C)
+    return nbytes, B * S * C * (2 * K + 1 + (4 if silu else 0))
+
+
+def check_conv1d(g, dev) -> dict:
+    """The conv1d kernel against its plain version at the main path's
+    shapes (mamba2-130m's 512-token prefill layer with SiLU, C=1,792;
+    recurrentgemma-2b's 2,560-token prefill layer without, C=2,560; a
+    4-slot decode step with a tail) and ragged ones (C not a multiple of
+    128, S=1 with a tail, S > 2,048, S < K-1), fp32 and bf16; then times,
+    beside ``F.conv1d(groups=C)`` on the left-padded input."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv1d.ops import causal_conv1d
+    from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
+    cases = [("mamba2_prefill", 1, 512, 1792, 4, "silu", False),
+             ("rg_prefill", 1, 2560, 2560, 4, "none", False),
+             ("mamba2_decode", 4, 1, 1792, 4, "silu", True),
+             ("rg_verify", 4, 4, 2560, 4, "none", True),
+             ("ragged_c", 2, 37, 130, 4, "silu", True),
+             ("long_s", 1, 3000, 200, 4, "none", False),
+             ("s_below_k", 3, 2, 96, 4, "silu", True)]
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype, atol in ((torch.float32, ATOL_KERNEL),
+                        (torch.bfloat16, ATOL_BF16)):
+        tag = str(dtype).split(".")[-1]
+        for name, B, S, C, K, act, tail in cases:
+            a = dict(x=rn(g, dev, B, S, C).to(dtype),
+                     w=rn(g, dev, K, C, s=0.5).to(dtype),
+                     b=rn(g, dev, C, s=0.1).to(dtype),
+                     tail=rn(g, dev, B, K - 1, C).to(dtype) if tail else None)
+            out = causal_conv1d(**a, activation=act)
+            torch.cuda.synchronize()
+            ref = causal_conv1d_ref(**a, activation=act)
+            err[tag] = max(err[tag], check_kernel_case(
+                "conv1d", f"{name} {tag} B={B} S={S} C={C} K={K} {act}",
+                out, ref, atol))
+    shapes = []
+    for name, B, S, C, K, act, tail in cases[:4]:
+        for dtype in (torch.bfloat16, torch.float32):
+            a = dict(x=rn(g, dev, B, S, C).to(dtype),
+                     w=rn(g, dev, K, C, s=0.5).to(dtype),
+                     b=rn(g, dev, C, s=0.1).to(dtype),
+                     tail=rn(g, dev, B, K - 1, C).to(dtype) if tail else None)
+            ms = time_ms(lambda: causal_conv1d(**a, activation=act))
+            plain_ms = time_ms(lambda: causal_conv1d_ref(**a, activation=act),
+                               iters=50)
+            # the library's depthwise conv over the left-padded (B, C, S+K-1)
+            # input; SiLU timed apart
+            pad = a["tail"] if tail else torch.zeros_like(a["x"][:, :K - 1])
+            xp = torch.cat([pad, a["x"]], 1).transpose(1, 2).contiguous()
+            wl = a["w"].t().contiguous()[:, None, :]
+            lib = lambda: F.conv1d(xp, wl, a["b"], groups=C)
+            lib_ms = time_ms(lib)
+            silu_ms = time_ms(lambda: F.silu(lib())) - lib_ms \
+                if act == "silu" else 0.0
+            ref_y = causal_conv1d(**a, activation="none")[0].float()
+            lib_err = max_err(lib().transpose(1, 2).float(), ref_y)
+            esize = a["x"].element_size()
+            b_ms, b_by = bound_ms(*conv1d_work(B, S, C, K, esize,
+                                               act == "silu"))
+            tag = str(dtype).split(".")[-1]
+            shapes.append({"shape": name, "dtype": tag, "B": B, "S": S,
+                           "C": C, "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms, "library_silu_ms": silu_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "library_vs_kernel_err": lib_err})
+            print(f"  conv1d {name} {tag}: kernel {ms * 1e3:.2f} us, plain "
+                  f"{plain_ms * 1e3:.2f} us, F.conv1d {lib_ms * 1e3:.2f} us "
+                  f"(+ SiLU {silu_ms * 1e3:.2f} us; agrees to {lib_err:.1e}),"
+                  f" bound {b_ms * 1e3:.3f} us ({b_by})")
+    head = shapes[0]                       # bf16 mamba2-130m prefill layer
+    return {"name": "conv1d", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/conv1d.cu",
+            "replaces": "src/repro/kernels/conv1d/kernel.py:25",
+            "max_abs_err": max(err.values()), "max_abs_err_by_dtype": err,
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shape": "bf16 mamba2-130m prefill layer: B=1 S=512 C=1792 K=4 "
+                     "SiLU",
+            "library": "torch.nn.functional.conv1d(groups=C) on the "
+                       "left-padded (B,C,S+K-1) input, SiLU timed apart",
+            "by_shape": shapes}
+
+
+def ssd_inputs(g, dev, dtype, B, nc, Q, H, N, P) -> dict:
+    """Model-like SSD inputs: C and B after the conv's SiLU, xdt = x * dt
+    with dt = softplus(.), and the within-chunk cumsum of dt * A with
+    A = -exp(U(-1, 1))."""
+    import torch
+    import torch.nn.functional as F
+    dt = F.softplus(rn(g, dev, B, nc, Q, H))
+    A = -torch.exp(torch.rand(H, generator=g) * 2 - 1).to(dev)
+    dA = (dt * A).permute(0, 1, 3, 2)
+    return dict(Cc=F.silu(rn(g, dev, B, nc, Q, H, N)).to(dtype),
+                Bc=F.silu(rn(g, dev, B, nc, Q, H, N)).to(dtype),
+                xdt=(rn(g, dev, B, nc, Q, H, P) * dt[..., None]).to(dtype),
+                dA_cs=torch.cumsum(dA, dim=-1).contiguous())
+
+
+def ssd_work(B, nc, Q, H, N, P, esize) -> tuple[float, float]:
+    """Bytes (C, B, xdt, dA read once, y and the float32 state written
+    once) and operations: per (chunk, head), C.B (2N), the decay (3) and
+    the P.xdt product (2P) over the Q(Q+1)/2 causal pairs, and the state's
+    2PN per row plus its decay (N + 2)."""
+    nbytes = (esize * B * nc * Q * H * (2 * N + 2 * P) + 4 * B * nc * H * Q
+              + 4 * B * nc * H * P * N)
+    pairs = Q * (Q + 1) / 2
+    ops = B * nc * H * (pairs * (2 * N + 3 + 2 * P) + Q * (2 * P * N + N + 2))
+    return nbytes, ops
+
+
+def check_ssd_chunk(g, dev) -> dict:
+    """The SSD-chunk kernel against its plain version at mamba2-130m's
+    whole-prompt prefill shape (2 chunks of Q=256, H=24, N=128, P=64) and
+    at ragged chunk lengths Q in {5, 200, 256} (a short prompt makes
+    Q = S), fp32 and bf16 (the state is float32 either way); then times.
+    No one PyTorch call computes the function."""
+    import torch
+    from repro_torch.kernels.ssd_chunk.ops import ssd_chunk_fused
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+    cases = [("mamba2_prefill", 1, 2, 256, 24, 128, 64),
+             ("q5", 1, 1, 5, 24, 128, 64),
+             ("q200", 2, 1, 200, 24, 128, 64),
+             ("q256_batch2", 2, 3, 256, 4, 128, 64),
+             ("smoke", 1, 3, 8, 4, 16, 32)]
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype, atol in ((torch.float32, ATOL_KERNEL),
+                        (torch.bfloat16, ATOL_BF16)):
+        tag = str(dtype).split(".")[-1]
+        for name, B, nc, Q, H, N, P in cases:
+            a = ssd_inputs(g, dev, dtype, B, nc, Q, H, N, P)
+            y, st = ssd_chunk_fused(**a)
+            torch.cuda.synchronize()
+            ry, rst = ssd_chunk_ref(**a)
+            e = check_kernel_case("ssd_chunk", f"{name} {tag} y", y, ry, atol)
+            e = max(e, check_kernel_case("ssd_chunk", f"{name} {tag} state",
+                                         st, rst, ATOL_KERNEL))
+            check(bool(torch.isfinite(y.float()).all() and
+                       torch.isfinite(st).all()), f"ssd_chunk {name}: not finite")
+            err[tag] = max(err[tag], e)
+    shapes = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name, B, nc, Q, H, N, P = cases[0]
+        a = ssd_inputs(g, dev, dtype, B, nc, Q, H, N, P)
+        ms = time_ms(lambda: ssd_chunk_fused(**a))
+        plain_ms = time_ms(lambda: ssd_chunk_ref(**a), iters=50)
+        b_ms, b_by = bound_ms(*ssd_work(B, nc, Q, H, N, P,
+                                        a["xdt"].element_size()),
+                              BF16_OPS_PER_S if dtype == torch.bfloat16
+                              else FP32_OPS_PER_S)
+        tag = str(dtype).split(".")[-1]
+        shapes.append({"shape": name, "dtype": tag, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by})
+        print(f"  ssd_chunk {name} {tag}: kernel {ms * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by})")
+    head = shapes[0]
+    return {"name": "ssd_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_chunk/kernel.py:22",
+            "max_abs_err": max(err.values()), "max_abs_err_by_dtype": err,
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None,
+            "shape": "bf16 mamba2-130m 512-token prefill layer: B=1 nc=2 "
+                     "Q=256 H=24 N=128 P=64",
+            "library": "none: no one PyTorch call computes it",
+            "by_shape": shapes}
+
+
+def band_mask(S, window, causal, dev):
+    """(S, S) bool: key j attendable from query i."""
+    import torch
+    i = torch.arange(S, device=dev)[:, None]
+    j = torch.arange(S, device=dev)[None, :]
+    delta = i - j
+    mask = delta < window
+    return mask & (delta >= 0) if causal else mask & (-delta < window)
+
+
+def local_work(B, S, Hq, Hkv, D, window, causal, esize) -> tuple[float, float]:
+    """Bytes (q, k, v read once, out written once) and operations: q.k and
+    p.v over the attendable (query, key) pairs, 4 a pair and dim."""
+    pairs = int(band_mask(S, window, causal, "cpu").sum())
+    nbytes = esize * B * S * D * (2 * Hq + 2 * Hkv)
+    return nbytes, 4.0 * B * Hq * pairs * D
+
+
+def check_local_attn(g, dev) -> dict:
+    """The local-attention kernel against its plain version at
+    recurrentgemma-2b's prefill shapes (10 query heads on 1 KV head,
+    D=256, window 2,048; S=2,560 and S=600 < window) and ragged ones (S not
+    a tile multiple, non-causal, Hkv = Hq, MQA, D=64 and 128), fp32 and
+    bf16; then times beside ``scaled_dot_product_attention`` with a boolean
+    band mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.local_attn.ops import local_attention_fused
+    from repro_torch.kernels.local_attn.ref import local_attention_ref
+    cases = [("rg_prefill_2560", 1, 2560, 10, 1, 256, 2048, True),
+             ("rg_prefill_600", 1, 600, 10, 1, 256, 2048, True),
+             ("ragged_gqa", 1, 77, 8, 2, 128, 33, True),
+             ("noncausal_mqa", 2, 77, 8, 1, 128, 33, False),
+             ("noncausal_nogroup", 2, 100, 4, 4, 64, 16, False),
+             ("window_ge_s", 1, 50, 4, 1, 64, 64, False)]
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype, atol in ((torch.float32, ATOL_KERNEL),
+                        (torch.bfloat16, ATOL_BF16)):
+        tag = str(dtype).split(".")[-1]
+        for name, B, S, Hq, Hkv, D, window, causal in cases:
+            a = dict(q=rn(g, dev, B, S, Hq, D).to(dtype),
+                     k=rn(g, dev, B, S, Hkv, D).to(dtype),
+                     v=rn(g, dev, B, S, Hkv, D).to(dtype))
+            out = local_attention_fused(**a, window=window, causal=causal)
+            torch.cuda.synchronize()
+            ref = local_attention_ref(**a, window=window, causal=causal)
+            err[tag] = max(err[tag], check_kernel_case(
+                "local_attn", f"{name} {tag} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                f"window={window} causal={causal}", out, ref, atol))
+    shapes = []
+    for name, B, S, Hq, Hkv, D, window, causal in cases[:2]:
+        for dtype in (torch.bfloat16, torch.float32):
+            a = dict(q=rn(g, dev, B, S, Hq, D).to(dtype),
+                     k=rn(g, dev, B, S, Hkv, D).to(dtype),
+                     v=rn(g, dev, B, S, Hkv, D).to(dtype))
+            kw = dict(window=window, causal=causal)
+            ms = time_ms(lambda: local_attention_fused(**a, **kw), iters=20,
+                         warmup=3)
+            plain_ms = time_ms(lambda: local_attention_ref(**a, **kw),
+                               iters=5, warmup=1)
+            q, k, v = (t.transpose(1, 2) for t in (a["q"], a["k"], a["v"]))
+            mask = band_mask(S, window, causal, dev)
+            lib = lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)
+            lib_ms = time_ms(lib, iters=20, warmup=3)
+            lib_err = max_err(lib().transpose(1, 2).float(),
+                              local_attention_fused(**a, **kw).float())
+            b_ms, b_by = bound_ms(*local_work(B, S, Hq, Hkv, D, window,
+                                              causal, a["q"].element_size()),
+                                  BF16_OPS_PER_S if dtype == torch.bfloat16
+                                  else FP32_OPS_PER_S)
+            tag = str(dtype).split(".")[-1]
+            shapes.append({"shape": name, "dtype": tag, "S": S, "ms": ms,
+                           "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "library_vs_kernel_err": lib_err})
+            print(f"  local_attn {name} {tag}: kernel {ms * 1e3:.2f} us, plain "
+                  f"{plain_ms * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us "
+                  f"(agrees to {lib_err:.1e}), bound {b_ms * 1e3:.3f} us "
+                  f"({b_by})")
+    head = shapes[0]                       # bf16, the longest prompt
+    return {"name": "local_attn", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/local_attn.cu",
+            "replaces": "src/repro/kernels/local_attn/kernel.py:26",
+            "max_abs_err": max(err.values()), "max_abs_err_by_dtype": err,
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shape": "bf16 recurrentgemma-2b prefill layer: B=1 S=2560 "
+                     "Hq=10 Hkv=1 D=256 window=2048 causal",
+            "library": "torch.nn.functional.scaled_dot_product_attention "
+                       "(enable_gqa) with a boolean band mask",
+            "by_shape": shapes}
+
+
+def requests_of(vocab: int, lens, gen: int) -> list:
+    """A synthetic queue drawn as the launcher's ``make_requests`` draws
+    it (one seeded generator, prompts in order): prompts of ``lens``
+    tokens, ``gen`` new tokens each."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(LM_SEED)
+    return [Request(rid=i, max_new=gen,
+                    prompt=rng.integers(0, vocab, n).astype(np.int32))
+            for i, n in enumerate(lens)]
+
+
+def kernel_wrappers() -> dict:
+    """Every ported kernel's wrapper, by name: each counts its launches."""
+    from repro_torch.kernels.conv1d.ops import causal_conv1d
+    from repro_torch.kernels.local_attn.ops import local_attention_fused
     from repro_torch.kernels.lstm_cell.ops import lstm_cell_fused
     from repro_torch.kernels.paged_attn.ops import paged_attention_fused
     from repro_torch.kernels.pixcon.ops import pixcon_gate
+    from repro_torch.kernels.ssd_chunk.ops import ssd_chunk_fused
+    return {"pixcon": pixcon_gate, "lstm_cell": lstm_cell_fused,
+            "paged_attn": paged_attention_fused, "conv1d": causal_conv1d,
+            "ssd_chunk": ssd_chunk_fused, "local_attn": local_attention_fused}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def serve_once(cfg, dev, params, dtype, mode: dict, reqs: list, ops=None,
+               profile_reqs: list | None = None) -> dict:
+    """One served run of ``reqs`` through the port's Scheduler on 4 slots
+    with the launch counts set to 0 just before and read just after.
+    Returns the streams, the stats, tok/s, decode tok/s, TTFT p50/p99 and
+    the launches; with ``profile_reqs``, also the device time by kernel
+    of a profiled run of that queue on the same engine."""
+    import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.obs import Tracer, derive_request_metrics, percentiles
     from repro_torch.serve import InferenceEngine, NgramDrafter, Scheduler
-    eng = InferenceEngine(cfg, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+    max_len = max(len(r.prompt) + r.max_new for r in reqs)
+    eng = InferenceEngine(cfg, slots=LM_SLOTS, max_len=max_len,
                           page_size=16, dtype=dtype, device=dev,
                           prefill_chunk=mode.get("prefill_chunk", 0),
                           ops=ops or tfm.KERNELS)
+
+    def sched_of(tracer=None):
+        return Scheduler(eng, eng.init_state(params), tracer=tracer,
+                         spec_k=mode.get("spec_k", 0),
+                         drafter=NgramDrafter() if mode.get("spec_k") else None)
     tracer = Tracer()
-    sched = Scheduler(eng, eng.init_state(params), tracer=tracer,
-                      spec_k=mode.get("spec_k", 0),
-                      drafter=NgramDrafter() if mode.get("spec_k") else None)
-    reqs = lm_requests(cfg.vocab_size)
+    sched = sched_of(tracer)
     torch.cuda.synchronize()
-    pixcon_gate.launches = lstm_cell_fused.launches = 0
-    paged_attention_fused.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     gen = sched.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"pixcon": pixcon_gate.launches,
-                "lstm_cell": lstm_cell_fused.launches,
-                "paged_attn": paged_attention_fused.launches}
+    launches = read_launches()
     st = dict(sched.stats)
     ttft = [m["ttft_s"] for m in derive_request_metrics(tracer.events()).values()]
     out = {"gen": gen, "stats": st, "wall_s": wall,
@@ -696,13 +1080,10 @@ def serve_once(cfg, dev, params, dtype, mode: dict, ops=None,
            "accepted_tok_per_step": st["decode_tokens"]
            / max(st["decode_slot_steps"], 1),
            "launches": launches}
-    if profile:
-        sched2 = Scheduler(eng, eng.init_state(params),
-                           spec_k=mode.get("spec_k", 0),
-                           drafter=NgramDrafter() if mode.get("spec_k") else None)
-        out["profile"] = device_breakdown(
-            lambda: sched2.run(lm_requests(cfg.vocab_size)), top=10,
-            host=False)
+    if profile_reqs is not None:
+        sched2 = sched_of()
+        out["profile"] = device_breakdown(lambda: sched2.run(profile_reqs),
+                                          top=25, host=False)
     return out
 
 
@@ -726,21 +1107,24 @@ def first_parting(a: dict, b: dict) -> dict:
     return out
 
 
-def decode_logits_check(cfg, dev, params, dtype, cpu_control=False) -> dict:
-    """Admit LM_SLOTS requests by whole-prompt prefill, then run one
-    decode_step_paged through the kernel and one through the plain
-    version on copies of the same state. Returns the logits' largest
-    difference over their largest magnitude, whether each slot's argmax
-    agrees, and each slot's gap between its two largest logits. With
-    ``cpu_control``, the plain version also runs on the CPU from the same
-    state: the difference two correct float32 runs show at this width."""
+def decode_logits_check(cfg, dev, params, dtype, reqs, cpu_control=False) -> dict:
+    """Admit the first LM_SLOTS requests of ``reqs`` by whole-prompt
+    prefill, then run one decode_step_paged through the kernels and one
+    through the plain versions on copies of the same state. Returns the
+    logits' largest difference over their largest magnitude, whether each
+    slot's argmax agrees, and each slot's gap between its two largest
+    logits, over the real vocab (the padded columns read -1e30). With
+    ``cpu_control``, the plain versions also run on the CPU
+    from the same state: the difference two correct float32 runs show at
+    this width."""
     import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import InferenceEngine
-    eng = InferenceEngine(cfg, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+    reqs = reqs[:LM_SLOTS]
+    eng = InferenceEngine(cfg, slots=LM_SLOTS,
+                          max_len=max(len(r.prompt) + r.max_new for r in reqs),
                           page_size=16, dtype=dtype, device=dev)
     state = eng.init_state(params)
-    reqs = lm_requests(cfg.vocab_size)[:LM_SLOTS]
     for s, r in enumerate(reqs):
         pages = list(range(s * eng.pages_per_slot, (s + 1) * eng.pages_per_slot))
         state = eng.assign_pages(state, s, pages)
@@ -754,7 +1138,7 @@ def decode_logits_check(cfg, dev, params, dtype, cpu_control=False) -> dict:
                 [type(c)(*(t.to(d, copy=True) for t in c)) for c in cache],
                 state.positions.to(d), state.page_table.to(d), act,
                 dtype=dtype, ops=ops)
-        return lg.float().cpu()
+        return lg[:, :cfg.vocab_size].float().cpu()   # not the -1e30 padding
     kern = step(state.params, state.cache, tfm.KERNELS, dev)
     plain = step(state.params, state.cache, tfm.PLAIN, dev)
     scale = float(plain.abs().max())
@@ -770,46 +1154,151 @@ def decode_logits_check(cfg, dev, params, dtype, cpu_control=False) -> dict:
     return out
 
 
-class CheckedAttn:
-    """Paged attention that runs the kernel and its plain version on the
+class Checked:
+    """A kernel's wrapper that runs the kernel and its plain version on the
     same inputs, keeps the largest difference over the output's largest
-    magnitude, and returns the plain result. Its launches serve only the
-    comparison; the main path's counts come from the runs above."""
+    magnitude (each output of a tuple apart), and returns the plain
+    result. Its launches serve only the comparison; the main path's counts
+    come from the served runs."""
 
-    def __init__(self):
+    def __init__(self, kernel, plain):
+        self.kernel, self.plain = kernel, plain
         self.calls, self.max_rel = 0, 0.0
 
     def __call__(self, *args, **kw):
-        from repro_torch.kernels.paged_attn.ops import paged_attention_fused
-        from repro_torch.kernels.paged_attn.ref import paged_attention_ref
-        ker = paged_attention_fused(*args, **kw)
-        out = paged_attention_ref(*args, **kw)
-        scale = max(float(out.abs().max()), 1e-30)
-        self.max_rel = max(self.max_rel, max_err(ker.float(), out.float()) / scale)
+        ker = self.kernel(*args, **kw)
+        out = self.plain(*args, **kw)
+        pairs = zip(ker, out) if isinstance(out, tuple) else [(ker, out)]
+        for k, o in pairs:
+            scale = max(float(o.abs().max()), 1e-30) if o.numel() else 1.0
+            self.max_rel = max(self.max_rel, max_err(k.float(), o.float())
+                               / scale if o.numel() else 0.0)
         self.calls += 1
         return out
 
 
+def checked_ops():
+    """KernelOps whose every kernel is held against its plain version."""
+    from repro_torch.models import transformer as tfm
+    return tfm.KernelOps(*(Checked(k, p) for k, p in zip(tfm.KERNELS,
+                                                        tfm.PLAIN)))
+
+
 def well_conditioned(cfg, params):
     """The params with wq, wk, wv scaled to std 1/sqrt(d_model) and wo to
-    1/sqrt(Hq*D): unit-variance projections. The reference's law (std
-    1/sqrt(shape[-2])) gives wq std 1/sqrt(Hq) and attention scores with a
-    spread in the hundreds."""
+    1/sqrt(Hq*D) in every attention layer: unit-variance projections. The
+    reference's law (std 1/sqrt(shape[-2])) gives wq std 1/sqrt(Hq) and
+    attention scores with a spread in the hundreds. Layers without
+    attention are left as they are."""
     d, hq, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     out = dict(params, layers=[])
     for lp in params["layers"]:
-        a = dict(lp["attn"], wq=lp["attn"]["wq"] * (hq / d) ** 0.5,
-                 wk=lp["attn"]["wk"] * (hkv / d) ** 0.5,
-                 wv=lp["attn"]["wv"] * (hkv / d) ** 0.5,
-                 wo=lp["attn"]["wo"] / hq ** 0.5)
-        out["layers"].append(dict(lp, attn=a))
+        if "attn" in lp:
+            a = dict(lp["attn"], wq=lp["attn"]["wq"] * (hq / d) ** 0.5,
+                     wk=lp["attn"]["wk"] * (hkv / d) ** 0.5,
+                     wv=lp["attn"]["wv"] * (hkv / d) ** 0.5,
+                     wo=lp["attn"]["wo"] / hq ** 0.5)
+            lp = dict(lp, attn=a)
+        out["layers"].append(lp)
     return out
+
+
+def damped(cfg, params):
+    """The params rescaled as ``well_conditioned`` does, then with every
+    layer's output projection (``wo``, ``w_down``, ``w_out``) scaled by
+    DAMP: the residual stream then carries the token's embedding almost
+    alone, and with tied embeddings the greedy model repeats its last
+    token. The n-gram drafter's drafts are then accepted, so a verify step
+    keeps some and rolls the rest back. The speculative mode runs on
+    these."""
+    def walk(t):
+        return {k: v * DAMP if k in DAMPED else
+                walk(v) if isinstance(v, dict) else v for k, v in t.items()}
+    well = well_conditioned(cfg, params)
+    return dict(well, layers=[walk(lp) for lp in well["layers"]])
+
+
+def check_spec(arch, name, r) -> None:
+    """A speculative run verified drafts and accepted some of them."""
+    if name != "spec":
+        return
+    st = r["stats"]
+    check(st["spec_steps"] > 0 and st["spec_accepted"] > 0,
+          f"{arch} {name}: {st['spec_steps']} verify steps, "
+          f"{st['spec_accepted']} of {st['spec_proposed']} drafts accepted")
+
+
+def print_run(arch, name, r) -> None:
+    print(f"  {arch} {name} bf16: {r['tok_per_s']:.1f} tok/s, decode "
+          f"{r['decode_tok_per_s']:.1f} tok/s, prefill "
+          f"{r['prefill_tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{r['ttft_p50_s']:.4f} s p99 {r['ttft_p99_s']:.4f} s, wall "
+          f"{r['wall_s']:.3f} s, launches "
+          f"{ {k: v for k, v in r['launches'].items() if v} }, accepted/step "
+          f"{r['accepted_tok_per_step']:.3f}, stats "
+          f"{ {k: r['stats'][k] for k in ('prefill_chunks', 'decode_steps', 'spec_steps', 'spec_proposed', 'spec_accepted')} }")
+    prof = r.get("profile")
+    if prof:
+        busy = prof["device_busy_s"]
+        print(f"    profiled repeat: wall {prof['wall_s']:.3f} s, device busy "
+              f"{'not measured' if busy is None else f'{busy:.3f} s'}; "
+              "top kernels:")
+        for row in prof["by_kernel"][:12]:
+            print(f"      {row['device_ms']:9.2f} ms {row['calls']:7d}x "
+                  f"{row['kernel']}")
+
+
+# the device-side names of each LM kernel's launch (ssd_chunk launches two)
+KERNEL_SYMBOLS = {"paged_attn": ("paged_attn_kernel",),
+                  "conv1d": ("conv1d_kernel",),
+                  "ssd_chunk": ("ssd_y_kernel", "ssd_state_kernel"),
+                  "local_attn": ("local_attn_kernel",)}
+
+
+def device_ms_per_launch(prof: dict) -> dict:
+    """Device time of one launch of each LM kernel in a profiled run: its
+    kernels' device time over their launches (None: not in the profile's
+    top rows)."""
+    out = {}
+    for name, syms in KERNEL_SYMBOLS.items():
+        rows = [r for r in prof["by_kernel"]
+                if any(sym in r["kernel"] for sym in syms)]
+        if rows:
+            out[name] = sum(r["device_ms"] for r in rows) / \
+                max(r["calls"] for r in rows)
+    return out
+
+
+def run_summary(runs: dict) -> dict:
+    keep = ("prefill_chunks", "decode_steps", "decode_tokens",
+            "prefill_tokens", "spec_steps", "spec_proposed", "spec_accepted")
+    out = {}
+    for name, r in runs.items():
+        row = {k: v for k, v in r.items() if k not in ("gen", "stats", "profile")}
+        row.update({k: r["stats"][k] for k in keep})
+        if r.get("profile"):
+            row["profiled_wall_s"] = r["profile"]["wall_s"]
+            row["profiled_device_busy_s"] = r["profile"]["device_busy_s"]
+            row["device_time_by_kernel"] = r["profile"]["by_kernel"]
+        out[name] = row
+    return out
+
+
+def check_tokens(cfg, name, r, reqs) -> None:
+    """Every request of the (fresh) queue ``reqs`` got its tokens, all in
+    the vocab."""
+    n_tok = sum(len(x) for x in r["gen"].values())
+    want = sum(q.max_new for q in reqs)
+    check(n_tok == want, f"{cfg.name} {name}: {n_tok} tokens, not {want}")
+    check(all(0 <= t < cfg.vocab_size for x in r["gen"].values() for t in x),
+          f"{cfg.name} {name}: token outside the vocab")
 
 
 def lm_main_path(dev) -> dict:
     """qwen2-1.5b at full width, random weights from the port's init (seed
-    0), served through the port's Scheduler in bf16 in three modes; then
-    the kernel's run held against the plain version's."""
+    0), served through the port's Scheduler in bf16 in three modes (the
+    speculative one on the damped weights, so that drafts are accepted);
+    then the kernel's run held against the plain version's."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
@@ -821,57 +1310,43 @@ def lm_main_path(dev) -> dict:
     nparams = sum(t.numel() for t in _leaves(p32))
     print(f"  qwen2-1.5b params: {nparams / 1e9:.3f} B, init "
           f"{time.perf_counter() - t0:.1f} s")
+    reqs = lambda: requests_of(cfg.vocab_size, LM_LENS, LM_GEN)
     modes = {"whole": {}, "chunked": {"prefill_chunk": LM_CHUNK},
              "spec": {"spec_k": LM_SPEC_K}}
-    serve_once(cfg, dev, pbf, torch.bfloat16, {"prefill_chunk": LM_CHUNK})
-    runs, total = {}, 0
+    serve_once(cfg, dev, pbf, torch.bfloat16, {"prefill_chunk": LM_CHUNK},
+               reqs())
+    runs = {}
     for name, mode in modes.items():
-        r = serve_once(cfg, dev, pbf, torch.bfloat16, mode, profile=True)
-        total += r["launches"]["paged_attn"]
-        n_tok = sum(len(x) for x in r["gen"].values())
-        check(n_tok == LM_REQUESTS * LM_GEN, f"{name}: {n_tok} tokens")
-        check(all(0 <= t < cfg.vocab_size for x in r["gen"].values() for t in x),
-              f"{name}: token outside the vocab")
+        # the profiled repeat only for whole prefill: the profiler's
+        # post-processing was most of this phase's time
+        r = serve_once(cfg, dev, damped(cfg, pbf) if name == "spec" else pbf,
+                       torch.bfloat16, mode, reqs(),
+                       profile_reqs=reqs() if name == "whole" else None)
+        check_tokens(cfg, name, r, reqs())
+        check_spec(cfg.name, name, r)
         check(r["launches"]["paged_attn"] > 0, f"{name}: paged_attn not launched")
-        check(r["launches"]["pixcon"] == r["launches"]["lstm_cell"] == 0,
-              f"{name}: a Dom-ST kernel ran on the LM path")
-        prof = r.pop("profile")
-        rows = prof["by_kernel"]
-        r["profiled_wall_s"] = prof["wall_s"]
-        r["profiled_device_busy_s"] = prof["device_busy_s"]
-        r["device_time_by_kernel"] = rows
+        check(all(r["launches"][k] == 0 for k in
+                  ("pixcon", "lstm_cell", "conv1d", "ssd_chunk", "local_attn")),
+              f"{name}: a kernel of another path ran: {r['launches']}")
         runs[name] = r
-        print(f"  {name} bf16: {r['tok_per_s']:.1f} tok/s, decode "
-              f"{r['decode_tok_per_s']:.1f} tok/s, prefill "
-              f"{r['prefill_tok_per_s']:.1f} tok/s, TTFT p50 "
-              f"{r['ttft_p50_s']:.4f} s, wall {r['wall_s']:.3f} s, paged_attn "
-              f"launches {r['launches']['paged_attn']}, accepted/step "
-              f"{r['accepted_tok_per_step']:.3f}, stats "
-              f"{ {k: r['stats'][k] for k in ('prefill_chunks', 'decode_steps', 'spec_proposed', 'spec_accepted')} }")
-        busy = prof["device_busy_s"]
-        print(f"    profiled repeat: wall {prof['wall_s']:.3f} s, device busy "
-              f"{'not measured' if busy is None else f'{busy:.3f} s'}; "
-              "top kernels:")
-        for row in rows:
-            print(f"      {row['device_ms']:9.2f} ms {row['calls']:7d}x "
-                  f"{row['kernel']}")
+        print_run("qwen2-1.5b", name, r)
     # streams are a pure function of (prompt, params): in bf16 the modes
     # round differently, so only the share of equal tokens is printed
-    for name in ("chunked", "spec"):
-        print(f"  bf16 streams, {name} vs whole: "
-              f"{same_tokens(runs[name]['gen'], runs['whole']['gen']):.3f} equal")
+    print(f"  bf16 streams, chunked vs whole: "
+          f"{same_tokens(runs['chunked']['gen'], runs['whole']['gen']):.3f} "
+          "equal")
 
     stamp("bf16 served runs done")
     # the kernel against the plain version, end to end on the card
-    bf = decode_logits_check(cfg, dev, pbf, torch.bfloat16)
+    bf = decode_logits_check(cfg, dev, pbf, torch.bfloat16, reqs())
     rel = bf["rel_err"]
     print(f"  bf16 decode_step_paged logits, kernel vs plain: "
           f"{rel:.3e} of the largest |logit| (tolerance {REL_LOGITS_BF16}); "
           f"argmax equal {bf['argmax_equal']}")
     check(rel <= REL_LOGITS_BF16, f"bf16 decode logits differ by {rel}")
     bf_plain = serve_once(cfg, dev, pbf, torch.bfloat16, modes["whole"],
-                          ops=tfm.PLAIN)
-    check(bf_plain["launches"]["paged_attn"] == 0, "the plain run launched")
+                          reqs(), ops=tfm.PLAIN)
+    check(not any(bf_plain["launches"].values()), "the plain run launched")
     share = same_tokens(runs["whole"]["gen"], bf_plain["gen"])
     print(f"  bf16 whole-prefill streams, kernel vs plain: {share:.3f} equal")
     del pbf
@@ -880,7 +1355,7 @@ def lm_main_path(dev) -> dict:
     # correct float32 runs part within a few tokens; the CPU control shows
     # by how much. Each launch is held against the plain version instead.
     stamp("bf16 checks done")
-    f32_logits = decode_logits_check(cfg, dev, p32, torch.float32,
+    f32_logits = decode_logits_check(cfg, dev, p32, torch.float32, reqs(),
                                      cpu_control=True)
     stamp("fp32 logits and CPU control done")
     print(f"  fp32 decode_step_paged logits: kernel vs plain "
@@ -890,51 +1365,203 @@ def lm_main_path(dev) -> dict:
           f"{f32_logits['argmax_equal']}, card/CPU "
           f"{f32_logits['cpu_argmax_equal']}")
     f32 = {}
+    d32 = damped(cfg, p32)
     for name, mode in modes.items():
-        checked = CheckedAttn()
-        serve_once(cfg, dev, p32, torch.float32, mode,
-                   ops=tfm.KernelOps(checked))
+        ops = checked_ops()
+        r = serve_once(cfg, dev, d32 if name == "spec" else p32,
+                       torch.float32, mode, reqs(), ops=ops)
+        check_spec(cfg.name, name, r)
+        checked = ops.paged_attn
         f32[name] = {"checked_launches": checked.calls,
                      "max_rel_err": checked.max_rel}
         print(f"  {name} fp32, every launch held against the plain version: "
               f"{checked.calls} launches, max error {checked.max_rel:.3e} of "
-              f"the output's largest |value| (tolerance {REL_PAGED_F32})")
-        check(checked.calls > 0 and checked.max_rel <= REL_PAGED_F32,
+              f"the output's largest |value| (tolerance {REL_F32})")
+        check(checked.calls > 0 and checked.max_rel <= REL_F32,
               f"fp32 {name}: kernel differs from plain by {checked.max_rel}")
 
     # fp32 greedy streams, kernel against plain, at full width on the same
     # weights with the attention projections rescaled to unit-variance
-    # outputs, where float32 runs are reproducible
+    # outputs, where float32 runs are reproducible (the spec mode on its
+    # damped weights)
     stamp("fp32 per-launch checks done")
     well = well_conditioned(cfg, p32)
     del p32
     for name, mode in modes.items():
-        k = serve_once(cfg, dev, well, torch.float32, mode)
-        p = serve_once(cfg, dev, well, torch.float32, mode, ops=tfm.PLAIN)
+        w = d32 if name == "spec" else well
+        k = serve_once(cfg, dev, w, torch.float32, mode, reqs())
+        p = serve_once(cfg, dev, w, torch.float32, mode, reqs(),
+                       ops=tfm.PLAIN)
+        check_spec(cfg.name, name, k)
         check(k["launches"]["paged_attn"] > 0 and
-              p["launches"]["paged_attn"] == 0, "launch counts")
+              not any(p["launches"].values()), "launch counts")
         same = k["gen"] == p["gen"]
         f32[name].update({"kernel_tok_per_s": k["tok_per_s"],
                           "plain_tok_per_s": p["tok_per_s"],
                           "streams_equal": same,
                           "equal_share": same_tokens(k["gen"], p["gen"]),
                           "first_parting": first_parting(k["gen"], p["gen"])})
-        print(f"  {name} fp32, rescaled weights: kernel {k['tok_per_s']:.1f} "
+        print(f"  {name} fp32, {'damped' if name == 'spec' else 'rescaled'} "
+              f"weights: kernel {k['tok_per_s']:.1f} "
               f"tok/s, plain {p['tok_per_s']:.1f} tok/s, greedy streams "
               f"equal: {same} (first parting {f32[name]['first_parting']})")
         check(same, f"fp32 {name}: kernel and plain streams differ")
-    keep = ("prefill_chunks", "decode_steps", "decode_tokens",
-            "prefill_tokens", "spec_steps", "spec_proposed", "spec_accepted")
-    summary = {name: {**{k: v for k, v in r.items()
-                         if k not in ("gen", "stats")},
-                      **{k: r["stats"][k] for k in keep}}
-               for name, r in runs.items()}
-    print("  " + json.dumps({"lm": summary, "fp32": f32,
+    print("  " + json.dumps({"lm": run_summary(runs), "fp32": f32,
                              "fp32_logits": f32_logits,
                              "bf16_logits_rel_err": rel,
                              "bf16_kernel_vs_plain_equal_share": share}))
-    return {"paged_attn": total,
-            "by_mode": {n: r["launches"]["paged_attn"] for n, r in runs.items()}}
+    return {"launches": {n: r["launches"] for n, r in runs.items()},
+            "profile": runs["whole"]["profile"]}
+
+
+# What each served mode of a recurrent model must launch (> 0) and must not
+# (== 0): the Dom-ST kernels never; ssd_chunk only in a mamba2 whole-prompt
+# prefill, local_attn only in a recurrentgemma one — which the spec mode
+# runs too, since it admits each prompt whole — and neither with 128-token
+# chunks; paged_attn never in mamba2 (no attention layer).
+RECURRENT_LAUNCHES = {
+    "recurrentgemma-2b": {
+        "whole": ({"local_attn", "conv1d", "paged_attn"},
+                  {"ssd_chunk", "pixcon", "lstm_cell"}),
+        "chunked": ({"conv1d", "paged_attn"},
+                    {"local_attn", "ssd_chunk", "pixcon", "lstm_cell"}),
+        "spec": ({"local_attn", "conv1d", "paged_attn"},
+                 {"ssd_chunk", "pixcon", "lstm_cell"})},
+    "mamba2-130m": {
+        "whole": ({"ssd_chunk", "conv1d"},
+                  {"paged_attn", "local_attn", "pixcon", "lstm_cell"}),
+        "chunked": ({"conv1d"},
+                    {"paged_attn", "local_attn", "ssd_chunk", "pixcon",
+                     "lstm_cell"}),
+        "spec": ({"ssd_chunk", "conv1d"},
+                 {"paged_attn", "local_attn", "pixcon", "lstm_cell"})},
+}
+
+
+def recurrent_main_path(arch: str, dev) -> dict:
+    """``arch`` (recurrentgemma-2b or mamba2-130m) at full width, random
+    weights from the port's init (seed 0), served through the port's
+    Scheduler in bf16 in three modes, each with the launch counts set to 0
+    just before and read just after, the whole-prefill mode profiled once.
+    The speculative mode runs on the damped weights, so that drafts are
+    accepted and verify rolls the recurrent state back. Then the kernels
+    against their plain versions end to end: one bf16 decode step's logits
+    on the admitted state, every launch of one fp32 served run per mode
+    side by side with the plain versions, and the fp32 greedy streams in
+    every mode, kernels against plain versions."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    spec = RECURRENT_RUNS[arch]
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    p32 = tfm.init(cfg, torch.Generator(device=dev).manual_seed(LM_SEED))
+    pbf = tfm.cast_params(p32, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _leaves(p32))
+    print(f"  {arch} params: {nparams / 1e9:.3f} B, {cfg.num_layers} layers, "
+          f"init {time.perf_counter() - t0:.1f} s")
+    def queue(name):            # a fresh queue: the scheduler consumes it
+        return requests_of(cfg.vocab_size, spec["lens"][name], spec["gen"])
+    modes = {"whole": {}, "chunked": {"prefill_chunk": LM_CHUNK},
+             "spec": {"spec_k": LM_SPEC_K}}
+    # warm-up: the kernels load and the allocator settles
+    serve_once(cfg, dev, damped(cfg, pbf), torch.bfloat16,
+               {"spec_k": LM_SPEC_K},
+               requests_of(cfg.vocab_size, spec["lens"]["whole"][:2], 4))
+    runs = {}
+    for name, mode in modes.items():
+        reqs = queue(name)
+        prof = requests_of(cfg.vocab_size, *spec["profile"]) \
+            if name == "whole" else None
+        r = serve_once(cfg, dev, damped(cfg, pbf) if name == "spec" else pbf,
+                       torch.bfloat16, mode, reqs, profile_reqs=prof)
+        check_tokens(cfg, name, r, queue(name))
+        check_spec(arch, name, r)
+        need, never = RECURRENT_LAUNCHES[arch][name]
+        for k in need:
+            check(r["launches"][k] > 0, f"{arch} {name}: {k} not launched")
+        for k in never:
+            check(r["launches"][k] == 0,
+                  f"{arch} {name}: {k} launched {r['launches'][k]} times")
+        runs[name] = r
+        print_run(arch, name, r)
+    if spec["lens"]["chunked"] == spec["lens"]["whole"]:
+        print(f"  bf16 streams, chunked vs whole: "
+              f"{same_tokens(runs['chunked']['gen'], runs['whole']['gen']):.3f}"
+              " equal")
+    stamp(f"{arch} bf16 served runs done")
+
+    bf = decode_logits_check(cfg, dev, pbf, torch.bfloat16, queue("whole"))
+    rel = bf["rel_err"]
+    print(f"  {arch} bf16 decode_step_paged logits, kernels vs plain: "
+          f"{rel:.3e} of the largest |logit| (tolerance {REL_LOGITS_BF16}); "
+          f"argmax equal {bf['argmax_equal']}")
+    check(rel <= REL_LOGITS_BF16, f"{arch} bf16 decode logits differ by {rel}")
+    del pbf
+
+    # fp32: every launch of one served run per mode held against the plain
+    # versions on the same inputs, on the weights of that mode's bf16 run
+    d32 = damped(cfg, p32)
+    f32 = {"checked": {}, "streams": {}}
+    for name, mode in modes.items():
+        ops = checked_ops()
+        r = serve_once(cfg, dev, d32 if name == "spec" else p32,
+                       torch.float32, mode, queue(name), ops=ops)
+        check_spec(arch, name, r)
+        rows = {k: {"launches": c.calls, "max_rel_err": c.max_rel}
+                for k, c in zip(tfm.KernelOps._fields, ops)}
+        f32["checked"][name] = rows
+        for k, c in ((k, c) for k, c in rows.items() if c["launches"]):
+            print(f"  {arch} {name} fp32, {k}: {c['launches']} launches held "
+                  f"against the plain version, max error "
+                  f"{c['max_rel_err']:.3e} of the output's largest |value| "
+                  f"(tolerance {REL_F32})")
+            check(c["max_rel_err"] <= REL_F32,
+                  f"{arch} {name} fp32 {k}: kernel differs from plain by "
+                  f"{c['max_rel_err']}")
+        for k in RECURRENT_LAUNCHES[arch][name][0]:
+            check(rows[k]["launches"] > 0, f"{arch} {name} fp32: {k} never "
+                  "checked")
+    stamp(f"{arch} fp32 per-launch checks done")
+
+    # fp32 greedy streams, kernels against plain versions: whole prefill on
+    # the main path's weights (printed: attention makes them chaotic), and
+    # every mode on reproducible weights (checked): the attention
+    # projections rescaled to unit variance (mamba2 has no attention
+    # layer, so there they are the main path's weights), the spec mode on
+    # its damped weights
+    has_attn = any("attn" in lp for lp in p32["layers"])
+    well = well_conditioned(cfg, p32)
+    tag = "rescaled weights" if has_attn else "main weights"
+    streams = [("whole", "main weights", p32)] if has_attn else []
+    streams += [("whole", tag, well), ("chunked", tag, well),
+                ("spec", "damped weights", d32)]
+    for name, tag, params in streams:
+        k = serve_once(cfg, dev, params, torch.float32, modes[name],
+                       queue(name))
+        p = serve_once(cfg, dev, params, torch.float32, modes[name],
+                       queue(name), ops=tfm.PLAIN)
+        check_spec(arch, name, k)
+        check(not any(p["launches"].values()), "the plain run launched")
+        row = {"kernel_tok_per_s": k["tok_per_s"],
+               "plain_tok_per_s": p["tok_per_s"],
+               "streams_equal": k["gen"] == p["gen"],
+               "equal_share": same_tokens(k["gen"], p["gen"]),
+               "first_parting": first_parting(k["gen"], p["gen"])}
+        f32["streams"][f"{name}, {tag}"] = row
+        print(f"  {arch} {name} fp32, {tag}: kernel {k['tok_per_s']:.1f} "
+              f"tok/s, plain {p['tok_per_s']:.1f} tok/s, greedy streams "
+              f"equal: {row['streams_equal']} (first parting "
+              f"{row['first_parting']})")
+        if (name, tag) != ("whole", "main weights") or not has_attn:
+            check(row["streams_equal"],
+                  f"{arch} {name} fp32 ({tag}): kernel and plain streams "
+                  "differ")
+    print("  " + json.dumps({arch: run_summary(runs), "fp32": f32,
+                             "bf16_logits": bf}))
+    return {"launches": {n: r["launches"] for n, r in runs.items()},
+            "profile": runs["whole"]["profile"]}
 
 
 def _leaves(tree):
@@ -983,18 +1610,37 @@ def main() -> int:
 
     g = torch.Generator().manual_seed(1234)
     print(f"[2] kernels against their plain versions (at {time.perf_counter() - T_START:.0f} s)")
-    kernels = [check_pixcon(g, dev), check_lstm(g, dev), check_paged_attn(g, dev)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = [check_pixcon(g, dev), check_lstm(g, dev), check_paged_attn(g, dev),
+               check_conv1d(g, dev), check_ssd_chunk(g, dev),
+               check_local_attn(g, dev)]
     print(f"[3] main path: Forecaster, domst, 23 watersheds x 400 days (at {time.perf_counter() - T_START:.0f} s)")
     launches, device_ms = main_path(dev)
+    by_model = {}
     print(f"[4] main path: paged LM serving, qwen2-1.5b, 8 requests x 64 tokens (at {time.perf_counter() - T_START:.0f} s)")
-    lm = lm_main_path(dev)
-    launches["paged_attn"] = lm["paged_attn"]
+    by_model["qwen2-1.5b"] = lm_main_path(dev)
+    for n, arch in ((5, "recurrentgemma-2b"), (6, "mamba2-130m")):
+        print(f"[{n}] main path: paged serving, {arch} (at {time.perf_counter() - T_START:.0f} s)")
+        by_model[arch] = recurrent_main_path(arch, dev)
+    for res in by_model.values():
+        for counts in res["launches"].values():
+            for name, c in counts.items():
+                if name not in ("pixcon", "lstm_cell"):
+                    launches[name] = launches.get(name, 0) + c
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
         if k["name"] in device_ms:
             k["device_ms_per_launch_on_main_path"] = device_ms[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
-    kernels[-1]["launches_by_mode"] = lm["by_mode"]
+            continue
+        k["launches_by_mode"] = {
+            arch: {mode: c[k["name"]] for mode, c in res["launches"].items()}
+            for arch, res in by_model.items()
+            if any(c[k["name"]] for c in res["launches"].values())}
+        k["device_ms_per_launch_on_main_path"] = {
+            arch: device_ms_per_launch(res["profile"]).get(k["name"])
+            for arch, res in by_model.items() if arch in k["launches_by_mode"]}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
-"""Configuration dataclasses for the port: a copy of what the Dom-ST and
-the dense-decoder paths read of the reference's ``configs/base.py``.
+"""Configuration dataclasses for the port: a copy of what the Dom-ST, the
+dense-decoder, the Mamba-2 and the RecurrentGemma paths read of the
+reference's ``configs/base.py``.
 
-``PixConConfig``, ``DomSTConfig`` and ``ModelConfig`` are field-for-field
-copies, with the same defaults and the same helpers (``padded_vocab``,
-``resolved_head_dim``, ``layer_kinds``, ``supports_decode``). The MoE,
-SSM and RG-LRU sub-configs are not ported yet: their fields are kept so
-a config reads alike, and the model raises ``NotImplementedError`` where
-it would need them. Configs are pure data and never touch a device.
+``SSMConfig``, ``RGLRUConfig``, ``PixConConfig``, ``DomSTConfig`` and
+``ModelConfig`` are field-for-field copies, with the same defaults and the
+same helpers (``d_inner``, ``num_heads``, ``padded_vocab``,
+``resolved_head_dim``, ``layer_kinds``, ``supports_decode``). The MoE
+sub-config is not ported yet: its field is kept so a config reads alike,
+and the model raises ``NotImplementedError`` where it would need it.
+Configs are pure data and never touch a device.
 """
 from __future__ import annotations
 
@@ -21,6 +23,33 @@ RECURRENT = "recurrent"         # RG-LRU recurrent block (recurrentgemma)
 SSM = "ssm"                     # Mamba-2 SSD block
 
 LAYER_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, SSM)
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block configuration [arXiv:2405.21060]."""
+
+    state_dim: int = 128              # N: SSM state size per head
+    head_dim: int = 64                # P: channels per SSD head
+    expand: int = 2                   # d_inner = expand * d_model
+    conv_width: int = 4               # causal depthwise conv kernel width
+    chunk_size: int = 256             # SSD chunk length (dual form)
+    ngroups: int = 1                  # B/C groups (GQA-analog for SSM)
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def num_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RG-LRU recurrent block configuration (RecurrentGemma / Griffin)."""
+
+    lru_width: int = 0                # 0 -> d_model (griffin uses ~4/3 d_model)
+    conv_width: int = 4               # temporal conv in the recurrent block
+    c_constant: float = 8.0           # the fixed `c` in a = exp(-c * softplus(Λ) * r)
 
 
 @dataclass(frozen=True)
@@ -62,7 +91,8 @@ class ModelConfig:
 
     ``family`` selects the top-level model builder:
       dense | moe | ssm | hybrid | encoder | vlm | audio | domst
-    The port runs the ``domst`` family and the dense decoders.
+    The port runs the ``domst`` family, the dense decoders, ``ssm``
+    (Mamba-2) and the RG-LRU/local-attention ``hybrid``.
     """
 
     name: str
@@ -91,10 +121,10 @@ class ModelConfig:
     embed_scale: bool = False         # gemma-style sqrt(d_model) embed scaling
     causal: bool = True               # False for encoder-only (hubert)
 
-    # sub-configs (MoE, SSM and RG-LRU are not ported: kept opaque)
+    # sub-configs (MoE is not ported: kept opaque)
     moe: Optional[Any] = None
-    ssm: Optional[Any] = None
-    rglru: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     pixcon: Optional[PixConConfig] = None
     domst: Optional[DomSTConfig] = None
     first_k_dense: int = 0            # deepseek-moe: first k layers use dense FFN

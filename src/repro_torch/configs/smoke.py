@@ -1,11 +1,13 @@
 """Reduced smoke-test variants: 2 layers, d_model <= 256, vocab <= 512.
 
-A copy of the LM branch of the reference's ``configs/smoke.py::
-smoke_variant``, for the families the port runs. Its MoE, SSM and RG-LRU
-branches wait for those blocks to be ported, and the Dom-ST branch for a
+A copy of the LM, SSM and RG-LRU branches of the reference's
+``configs/smoke.py::smoke_variant``, for the families the port runs. Its
+MoE branch waits for that block to be ported, and the Dom-ST branch for a
 caller: each raises ``NotImplementedError`` meanwhile.
 """
 from __future__ import annotations
+
+import dataclasses
 
 from repro_torch.configs.base import ModelConfig
 
@@ -14,11 +16,9 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Shrink ``cfg`` to a CPU-runnable variant of the same family."""
     if cfg.family == "domst":
         raise NotImplementedError("the Dom-ST smoke variant is not ported")
-    for sub in ("moe", "ssm", "rglru"):
-        if getattr(cfg, sub) is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the {sub} block is not ported yet (ROADMAP "
-                "Queue A)")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the moe block is not ported yet (ROADMAP Queue A)")
 
     d_model = min(cfg.d_model, 256)
     # keep head structure: shrink head count but preserve GQA ratio
@@ -44,6 +44,11 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         num_patches=min(cfg.num_patches, 8) if cfg.num_patches else 0,
         frontend_dim=min(cfg.frontend_dim, 64) if cfg.frontend_dim else 0,
     )
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(
+            cfg.ssm, state_dim=16, head_dim=32, chunk_size=8)
+    if cfg.rglru is not None:
+        kw["rglru"] = dataclasses.replace(cfg.rglru, lru_width=d_model)
     # keep the layer pattern (family behaviour) but only 2 layers: take the
     # first 2 kinds, and make hybrids exercise both kinds of layer
     kinds = cfg.layer_kinds()[:2] if cfg.num_layers >= 2 else cfg.layer_pattern

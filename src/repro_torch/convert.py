@@ -21,7 +21,9 @@ An LM tree (one with an ``embed`` subtree) converts by
 leaves carry a leading layer-repetition axis, and the port keeps one
 nested dict per layer, so that axis is unstacked into the list
 ``layers`` (prefix layers, the repetitions pattern by pattern, then the
-suffix). Leaves keep the reference's shapes and names.
+suffix). Leaves keep the reference's shapes and names, in the attention
+(``attn``), RG-LRU (``rec``), SSM (``ssm``, with its nested
+``out_norm``) and FFN subtrees alike.
 """
 from __future__ import annotations
 
@@ -78,13 +80,14 @@ def lm_params_from_jax(tree: Mapping[str, Any],
     def leaf(v):
         return torch.as_tensor(np.array(v, np.float32), device=device).contiguous()
 
-    def nested(t):
-        return {k: nested(v) if isinstance(v, Mapping) else leaf(v)
+    def nested(t, at=leaf):
+        return {k: nested(v, at) if isinstance(v, Mapping) else at(v)
                 for k, v in t.items()}
 
-    for key in ("frontend", "gate"):
-        if key in tree:
-            raise NotImplementedError(f"LM params with '{key}' are not ported")
+    unknown = set(tree) - {"embed", "final_norm", "prefix", "blocks", "suffix"}
+    if unknown:
+        raise NotImplementedError(
+            f"LM params with {sorted(unknown)} are not ported")
     layers = [nested(lp) for lp in tree.get("prefix", ())]
     if "blocks" in tree:
         blocks = tree["blocks"]
@@ -92,9 +95,8 @@ def lm_params_from_jax(tree: Mapping[str, Any],
         n_rep = len(np.asarray(next(iter(flatten(blocks[pattern[0]]).values()))))
         for r in range(n_rep):
             for i in pattern:
-                layers.append({k: {n: leaf(np.asarray(a)[r]) for n, a in
-                                   flatten(g).items()}
-                               for k, g in blocks[i].items()})
+                layers.append(nested(blocks[i], lambda a: leaf(
+                    np.asarray(a)[r])))
     layers += [nested(lp) for lp in tree.get("suffix", ())]
     return {"embed": nested(tree["embed"]),
             "final_norm": nested(tree["final_norm"]), "layers": layers}

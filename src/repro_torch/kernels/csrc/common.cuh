@@ -1,6 +1,7 @@
 // Shared helpers for the port's CUDA sources, each built into its own
 // shared library with a plain C interface (see kernels/build.py).
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
@@ -9,3 +10,29 @@
 REPRO_EXPORT const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+namespace repro {
+
+// Loads and stores of the two activation dtypes (dtype code 0: float32,
+// 1: bfloat16); the arithmetic runs in float32.
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Raise a kernel's dynamic shared memory limit above the default 48 KB.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace repro

@@ -45,28 +45,17 @@
 #include <climits>
 #include <cstdint>
 
-#include <cuda_bf16.h>
-
 #include "common.cuh"
 
 namespace {
+
+using repro::from_f;
+using repro::to_f;
 
 constexpr int kWarps = 4;
 constexpr int kRows = 8;          // query rows (t, g) of one (b, h) per block
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -238,11 +227,8 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const size_t merge = (size_t)kWarps * kRows * (D + 2) * sizeof(float);
   const size_t smem = stage > merge ? stage : merge;
   auto kernel = paged_attn_kernel<T, D, PS>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((Tq * G + kRows - 1) / kRows, Hkv, B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),

@@ -8,8 +8,9 @@ Two modes, as in the reference's ``repro/launch/serve.py``:
     never loaded), roll forward day by day over the held-out forcing
     windows through :class:`Forecaster`, reporting per-watershed NSE
     against observed discharge;
-  * a dense decoder (``--arch qwen2-1.5b``, ``--smoke`` for its reduced
-    variant) — continuous batching over the paged
+  * a decoder — dense (``--arch qwen2-1.5b``), RG-LRU/local-attention
+    hybrid (``--arch recurrentgemma-2b``) or SSM (``--arch mamba2-130m``),
+    ``--smoke`` for the reduced variant — continuous batching over the paged
     :class:`InferenceEngine` through the :class:`Scheduler`: one
     whole-prompt prefill per request (or ``--prefill-chunk N`` tokens at a
     time, interleaved with decode steps), one fused all-slot decode step
@@ -28,6 +29,10 @@ raises.
       --requests 8 --prompt-len 512 --ragged --gen 64 --prefill-chunk 128
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-2b --requests 4 --prompt-len 512 --ragged --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+      --smoke --device cpu --prefill-chunk 3 --spec-k 3
 """
 from __future__ import annotations
 
@@ -202,8 +207,8 @@ def main(argv=None) -> dict:
     if args.arch.startswith("domst"):
         return serve_domst(args)
     if args.arch not in list_configs():
-        ap.error(f"--arch {args.arch}: not ported; the port serves "
-                 f"{', '.join(list_configs())}")
+        ap.error(f"--arch {args.arch}: not ported yet (ROADMAP Queue A); "
+                 f"the port serves {', '.join(list_configs())}")
     return serve_lm(args)
 
 

@@ -4,9 +4,12 @@ and attention over a paged KV pool.
 The port of the dense and paged parts of ``repro/models/attention.py``.
 Layouts are BSHD: q (B, S, Hq, D); k/v (B, S, Hkv, D).
 
-* ``flash_attention`` — whole-prompt (prefill) attention, an online
-  softmax over KV blocks in plain torch ops, as the reference's is plain
-  JAX;
+* ``flash_attention`` — whole-prompt (prefill) attention of a global
+  layer, an online softmax over KV blocks in plain torch ops, as the
+  reference's is plain JAX;
+* the whole-prompt attention of a local (sliding-window) layer goes
+  through ``kernels/local_attn``, where the reference computes
+  ``local_attention`` inline in plain JAX;
 * ``paged_attend`` and the three paged paths (decode, multi-token verify,
   chunked prefill) — every attention over the page pool goes through
   ``kernels/paged_attn`` (the Hopper kernel on the card, its plain
@@ -32,6 +35,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.local_attn.ops import local_attention_fused
 from repro_torch.kernels.paged_attn.ops import paged_attention_fused
 from repro_torch.models.layers import NEG_INF, apply_rope
 
@@ -125,19 +129,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
 
 
-def attention_block(params, cfg: ModelConfig, x: torch.Tensor, *, kind: str):
+def attention_block(params, cfg: ModelConfig, x: torch.Tensor, *, kind: str,
+                    local: Callable = local_attention_fused):
     """Whole-prompt attention layer for prefill: x (B,S,d) ->
-    (out (B,S,d), (k, v)). Only global attention is ported; the training
-    path (``blockq_attention``) and sliding-window prefill
-    (``local_attention``) come with later slices."""
-    if kind != "global":
+    (out (B,S,d), (k, v)). A global layer runs ``flash_attention``; a
+    local layer runs ``local``, the sliding-window kernel's wrapper
+    (its plain version is passed only to check the kernel's run on the
+    card), with ``window=cfg.window``. The local kernel has no softcap,
+    so a local layer with ``attn_softcap`` (gemma2) raises. The training
+    path (``blockq_attention``) comes with a later slice."""
+    if kind not in ("global", "local"):
+        raise ValueError(kind)
+    if kind == "local" and cfg.attn_softcap:
         raise NotImplementedError(
-            f"{kind} attention prefill is not ported yet (ROADMAP Queue A)")
+            f"{cfg.name}: local attention with a softcap has no kernel "
+            "(ROADMAP Queue A, item 4)")
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     q, k, v = qkv_project(params, cfg, x, positions)
-    o = flash_attention(q, k, v, causal=cfg.causal,
-                        softcap_val=cfg.attn_softcap)
+    if kind == "local":
+        o = local(q.contiguous(), k.contiguous(), v.contiguous(),
+                  window=cfg.window, causal=cfg.causal)
+    else:
+        o = flash_attention(q, k, v, causal=cfg.causal,
+                            softcap_val=cfg.attn_softcap)
     return out_project(params, o), (k, v)
 
 

@@ -10,10 +10,12 @@ reference's) calls:
   * ``assign_pages`` / ``release_pages`` (page-table installs, host-side
     policy hooks), ``set_sampling`` (greedy only);
   * ``insert`` (whole-prompt prefill at the exact prompt length, its ring
-    cache scattered into the slot's pages), ``insert_chunk`` (one prompt
-    chunk written through the slot's page row), ``decode`` (one token for
-    every slot, ``active`` gating every write) and ``verify`` (one forward
-    over each slot's last token plus K drafts, greedy acceptance).
+    cache scattered into the slot's pages and its recurrent/SSM state into
+    the slot's row), ``insert_chunk`` (one prompt chunk written through
+    the slot's page row and state row), ``decode`` (one token for every
+    slot, ``active`` gating every write) and ``verify`` (one forward over
+    each slot's last token plus K drafts, greedy acceptance, recurrent
+    rows rolled back to the last accepted token).
 
 The reference's steps are jitted and donated; the port runs them eagerly
 under ``torch.inference_mode`` and updates the state's tensors in place.
@@ -21,12 +23,12 @@ Token outputs come back as numpy arrays, which is where a step waits for
 the device. Prefix-cache, preemption and host-tier hooks (``copy_pages``,
 ``get/set_slot_state``, ``swap_out/swap_in``, ``spill_page``,
 ``restore_pages``) raise ``NotImplementedError``: ROADMAP Queue A,
-item 4. The contiguous (unpaged) layout is not ported: ``paged`` is
+item 5. The contiguous (unpaged) layout is not ported: ``paged`` is
 always True.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a card they raise. ``ops=transformer.PLAIN``
-serves only to hold the kernel's run against its plain version on the
+serves only to hold the kernels' run against their plain versions on the
 card.
 """
 from __future__ import annotations
@@ -36,7 +38,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import RECURRENT, SSM, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.serve import sampling
@@ -44,7 +46,7 @@ from repro_torch.serve.state import (
     InferenceState, clear_pages, new_paged_inference_state, select_verified,
 )
 
-_ROADMAP = "not ported yet (ROADMAP Queue A, item 4)"
+_ROADMAP = "not ported yet (ROADMAP Queue A, item 5)"
 
 
 class InferenceEngine:
@@ -117,21 +119,22 @@ class InferenceEngine:
 
     @property
     def has_recurrent_state(self) -> bool:
-        """False: the ported stacks keep all their state in the page pools
-        (recurrent and SSM layers are not ported)."""
-        return False
+        """True when the arch keeps slot-major recurrent/SSM state beside
+        the paged KV pools (pages hold only attention KV)."""
+        return any(kind in (RECURRENT, SSM)
+                   for kind, _ in tfm.layer_plan(self.cfg))
 
     def set_sampling(self, state: InferenceState, slot: int,
                      params: "sampling.SamplingParams",
                      context=()) -> InferenceState:
         """Install a request's sampling config into ``slot``. The port
         serves greedy requests only; the sampler (``sampling.draw``) waits
-        for ROADMAP Queue A, item 5."""
+        for ROADMAP Queue A, item 6."""
         params.validate()
         if not params.greedy:
             raise NotImplementedError(
                 "sampled decoding (temperature > 0) is not ported yet "
-                "(ROADMAP Queue A, item 5)")
+                "(ROADMAP Queue A, item 6)")
         return state
 
     def copy_pages(self, state, src, dst):
@@ -169,14 +172,16 @@ class InferenceEngine:
 
     def insert(self, state: InferenceState, inputs: Dict[str, Any],
                slot: int):
-        """Prefill ONE request (tokens (1, L), exact length) into slot
-        ``slot``, whose page row must already be installed
-        (``assign_pages``). Returns (state, first greedy token (1,))."""
+        """Prefill ONE request (tokens (1, L), exact length, so recurrent
+        and SSM state is exact) into slot ``slot``, whose page row must
+        already be installed (``assign_pages``): KV rings scatter into its
+        pages, recurrent/SSM state into its row. Returns (state, first
+        greedy token (1,))."""
         inputs = self._tokens(inputs)
         with torch.inference_mode():
             logits, cache_one = tfm.prefill(state.params, self.cfg, inputs,
                                             max_len=self.max_len,
-                                            dtype=self.dtype)
+                                            dtype=self.dtype, ops=self.ops)
             tok = torch.argmax(logits, dim=-1).to(torch.int32)      # (1,)
             tfm.scatter_prefill_paged(self.cfg, state.cache, cache_one,
                                       state.page_table[slot], slot)
@@ -187,8 +192,9 @@ class InferenceEngine:
     def insert_chunk(self, state: InferenceState, inputs: Dict[str, Any],
                      slot: int, pos_start: int):
         """Insert ONE prompt chunk (tokens (1, C)) starting at absolute
-        position ``pos_start`` into slot ``slot``'s pages. Returns (state,
-        greedy token (1,)), meaningful only for a prompt's final chunk."""
+        position ``pos_start`` into slot ``slot``'s pages and state row.
+        Returns (state, greedy token (1,)), meaningful only for a
+        prompt's final chunk."""
         inputs = self._tokens(inputs)
         with torch.inference_mode():
             logits, _ = tfm.prefill_chunk(
@@ -203,7 +209,8 @@ class InferenceEngine:
     def decode(self, state: InferenceState, active=None):
         """One decode step over ALL slots: each active slot's last token
         advances its own position counter; inactive slots neither touch
-        the page pool nor advance. Returns (state, greedy tokens
+        the page pool nor advance their position or recurrent state.
+        Returns (state, greedy tokens
         (slots,)); inactive slots' tokens are garbage the scheduler
         ignores."""
         if active is None:
@@ -224,7 +231,8 @@ class InferenceEngine:
         slot its last token plus ``drafts`` (slots, K), verify in ONE paged
         forward, and accept the longest prefix of drafts matching the
         model's own greedy next tokens (drafts past ``draft_len`` never
-        match). Returns (state, emitted (slots, K+1), consumed (slots,)):
+        match); recurrent/SSM rows roll back to the state at each slot's
+        last accepted token (``select_verified``). Returns (state, emitted (slots, K+1), consumed (slots,)):
         slot ``s`` emitted ``emitted[s, :consumed[s]]``, the same tokens
         ``consumed[s]`` successive :meth:`decode` calls would give, and
         advanced its position by ``consumed[s]``."""

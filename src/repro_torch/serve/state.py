@@ -2,10 +2,11 @@
 
 The port of the paged part of ``repro/serve/state.py``: model parameters
 (already cast as the steps use them, ``transformer.cast_params``), one
-page pool per attention layer, a per-slot ``page_table`` (S,
-pages_per_slot) of physical page ids (-1 free), and the per-slot position
-counter and last token. Slot count is decoupled from cache length: KV
-memory follows live tokens, not ``slots * max_len``.
+page pool per attention layer and slot-major float32 state per recurrent
+or SSM layer, a per-slot ``page_table`` (S, pages_per_slot) of physical
+page ids (-1 free), and the per-slot position counter and last token.
+Slot count is decoupled from cache length: KV memory follows live tokens,
+not ``slots * max_len``.
 
 The reference threads the state through jitted, donated steps and gets a
 new one back from each; the port updates the tensors in place and hands
@@ -26,7 +27,7 @@ from repro_torch.models.attention import PagedKVCache
 
 class InferenceState(NamedTuple):
     params: Any
-    cache: List[PagedKVCache]   # tfm.init_paged_cache: one pool per layer
+    cache: List[Any]            # tfm.init_paged_cache: a pool or a state per layer
     positions: torch.Tensor     # (S,) int32: next write index per slot
     last_tok: torch.Tensor      # (S,) int32: last accepted/emitted token
     page_table: torch.Tensor    # (S, pages_per_slot) int32, -1 free
@@ -55,20 +56,32 @@ def clear_pages(cache: List[PagedKVCache], pages: torch.Tensor) -> None:
     place, so a page recycled from an evicted request can never leak stale
     entries into its new owner's attention mask (positions are the only
     validity record — k/v bytes are inert once pos is -1). Negative ids
-    go to the sink page."""
+    go to the sink page. Recurrent and SSM state holds no pages."""
     for pool in cache:
-        pool.pos[torch.where(pages >= 0, pages, pool.num_pages).long()] = -1
+        if isinstance(pool, PagedKVCache):
+            pool.pos[torch.where(pages >= 0, pages, pool.num_pages).long()] = -1
 
 
 def select_verified(stacked: List[Any], old: List[Any], n: torch.Tensor,
                     active: torch.Tensor) -> List[Any]:
     """Roll the cache back to each slot's last accepted token after a
-    speculative verify step. Attention page pools need nothing: rejected
-    writes are shadowed by the position mask until the real sequence
-    overwrites them. (The per-step recurrent/SSM snapshots the reference
-    selects from here are not ported.)"""
-    for entry in stacked:
-        if not isinstance(entry, PagedKVCache):
-            raise NotImplementedError("recurrent state roll-back is not "
-                                      "ported yet (ROADMAP Queue A)")
-    return stacked
+    speculative verify step, in place, and return ``old``.
+
+    ``stacked`` is the cache list ``transformer.verify_step_paged``
+    returned: attention page pools are final (rejected writes are
+    shadowed by the position mask until the real sequence overwrites
+    them — nothing to undo), while recurrent/SSM entries carry the state
+    after every proposed token on a leading step axis. ``n`` (S,) is the
+    number of accepted drafts per slot: snapshot ``n[s]`` is the state
+    after consuming the last accepted token. Each active slot's row of
+    ``old`` takes that snapshot; inactive slots keep their rows."""
+    rows = torch.arange(n.shape[0], device=n.device)
+    idx = n.long()
+    for st, o in zip(stacked, old):
+        if isinstance(st, PagedKVCache):
+            continue
+        for snap, leaf in zip(st, o):
+            sel = snap[idx, rows]                               # (S, ...)
+            m = active.reshape((-1,) + (1,) * (sel.dim() - 1))
+            leaf.copy_(torch.where(m, sel.to(leaf.dtype), leaf))
+    return old

@@ -127,6 +127,10 @@ def _paged_case(g, dev, dtype, B, T, Hq, Hkv, D, ps, n, lens):
     (7, 4, 1, 64, 4, 5, 50.0),         # window + softcap, small pages
     (3, 8, 8, 64, 32, 0, 30.0),        # no GQA, 32-key pages
     (2, 4, 2, 256, 8, 3, 0.0),
+    # recurrentgemma-2b's local layers (D=256, 16-token pages) in verify
+    # and in a prefill chunk, the window short enough to mask keys here
+    (4, 10, 1, 256, 16, 100, 0.0),
+    (128, 10, 1, 256, 16, 100, 0.0),
 ])
 def test_paged_attn_kernel_matches_plain(dev, dtype, atol, T, Hq, Hkv, D, ps,
                                          window, softcap):
@@ -167,3 +171,128 @@ def test_paged_attn_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         paged_attention_fused(**{**a, "q": a["q"].transpose(2, 3)
                                  .contiguous().transpose(2, 3)})
+
+
+# ---------------------------------------------------------------------------
+# conv1d, ssd_chunk and local attention: fp32 within 1e-5 (the conv1d
+# kernel rounds each product and sum as its plain version does, so it
+# agrees to the bit; the other two sum in another order); bf16 outputs
+# within 2e-2, one bf16 ulp at |out| < 4, where a float32 result that
+# differs in its last bit rounds to the neighbouring bf16 value.
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("B,S,C,K,act,tail", [
+    (1, 512, 1792, 4, "silu", False),   # mamba2-130m prefill layer
+    (4, 1, 1792, 4, "silu", True),      # mamba2-130m decode step
+    (1, 2560, 2560, 4, "none", False),  # recurrentgemma-2b prefill layer
+    (4, 4, 2560, 4, "none", True),      # recurrentgemma-2b verify step
+    (2, 2050, 130, 3, "silu", True),    # S > 2,048, C not a multiple of 128
+    (3, 2, 5, 4, "none", True),         # S < K-1: the tail is read twice
+])
+def test_conv1d_kernel_matches_plain(dev, dtype, atol, B, S, C, K, act, tail):
+    from repro_torch.kernels.conv1d import ops
+    from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
+    g = torch.Generator().manual_seed(B * S + C + K)
+    td = getattr(torch, dtype)
+    a = dict(x=_rn(g, dev, B, S, C).to(td), w=_rn(g, dev, K, C, s=0.5).to(td),
+             b=_rn(g, dev, C, s=0.1).to(td),
+             tail=_rn(g, dev, B, K - 1, C).to(td) if tail else None)
+    before = ops.causal_conv1d.launches
+    y, new_tail = ops.causal_conv1d(**a, activation=act)
+    torch.cuda.synchronize()
+    assert ops.causal_conv1d.launches == before + 1
+    ref_y, ref_tail = causal_conv1d_ref(**a, activation=act)
+    torch.testing.assert_close(y.float(), ref_y.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(new_tail, ref_tail, atol=0, rtol=0)
+
+
+def ssd_inputs(g, dev, dtype, B, nc, Q, H, N, P):
+    """Model-like SSD inputs: C and B after the conv's SiLU, xdt = x * dt
+    with dt = softplus(.), and the within-chunk cumsum of dt * A with
+    A = -exp(U(-1, 1))."""
+    import torch.nn.functional as F
+    silu = lambda t: F.silu(t)
+    dt = F.softplus(_rn(g, dev, B, nc, Q, H))
+    A = -torch.exp(torch.rand(H, generator=g) * 2 - 1).to(dev)
+    dA = (dt * A).permute(0, 1, 3, 2).contiguous()
+    return dict(Cc=silu(_rn(g, dev, B, nc, Q, H, N)).to(dtype),
+                Bc=silu(_rn(g, dev, B, nc, Q, H, N)).to(dtype),
+                xdt=(_rn(g, dev, B, nc, Q, H, P) * dt[..., None]).to(dtype),
+                dA_cs=torch.cumsum(dA, dim=-1).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("B,nc,Q,H,N,P", [
+    (1, 2, 256, 24, 128, 64),   # mamba2-130m, a 512-token prefill
+    (1, 1, 5, 24, 128, 64),     # a 5-token prompt: Q = 5
+    (2, 1, 200, 3, 128, 64),    # Q not a multiple of the 64-row tile
+    (1, 3, 8, 4, 16, 32),       # smoke widths
+])
+def test_ssd_chunk_kernel_matches_plain(dev, dtype, atol, B, nc, Q, H, N, P):
+    from repro_torch.kernels.ssd_chunk import ops
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+    g = torch.Generator().manual_seed(Q * H + N + P)
+    a = ssd_inputs(g, dev, getattr(torch, dtype), B, nc, Q, H, N, P)
+    before = ops.ssd_chunk_fused.launches
+    y, st = ops.ssd_chunk_fused(**a)
+    torch.cuda.synchronize()
+    assert ops.ssd_chunk_fused.launches == before + 1
+    ref_y, ref_st = ssd_chunk_ref(**a)
+    torch.testing.assert_close(y.float(), ref_y.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(st, ref_st, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,causal", [
+    (1, 2560, 10, 1, 256, 2048, True),  # recurrentgemma-2b, longest prompt
+    (1, 600, 10, 1, 256, 2048, True),   # window >= S
+    (2, 100, 4, 4, 64, 16, False),      # non-causal, no grouping
+    (1, 77, 8, 2, 128, 33, True),       # S not a tile multiple, GQA
+    (2, 77, 8, 1, 128, 33, False),      # non-causal MQA
+])
+def test_local_attn_kernel_matches_plain(dev, dtype, atol, B, S, Hq, Hkv, D,
+                                         window, causal):
+    from repro_torch.kernels.local_attn import ops
+    from repro_torch.kernels.local_attn.ref import local_attention_ref
+    g = torch.Generator().manual_seed(S + D + window)
+    td = getattr(torch, dtype)
+    a = dict(q=_rn(g, dev, B, S, Hq, D).to(td), k=_rn(g, dev, B, S, Hkv, D).to(td),
+             v=_rn(g, dev, B, S, Hkv, D).to(td))
+    before = ops.local_attention_fused.launches
+    out = ops.local_attention_fused(**a, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.local_attention_fused.launches == before + 1
+    ref = local_attention_ref(**a, window=window, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    from repro_torch.kernels.conv1d.ops import causal_conv1d
+    from repro_torch.kernels.local_attn.ops import local_attention_fused
+    from repro_torch.kernels.ssd_chunk.ops import ssd_chunk_fused
+    g = torch.Generator().manual_seed(0)
+    x = _rn(g, dev, 2, 5, 8)
+    with pytest.raises(TypeError, match="bfloat16"):
+        causal_conv1d(x, _rn(g, dev, 4, 8).bfloat16(), _rn(g, dev, 8))
+    with pytest.raises(ValueError, match="must be"):
+        causal_conv1d(x, _rn(g, dev, 4, 8), _rn(g, dev, 8),
+                      tail=_rn(g, dev, 2, 2, 8))
+    a = ssd_inputs(g, dev, torch.float32, 1, 1, 8, 2, 16, 8)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk_fused(**{**a, "dA_cs": a["dA_cs"].bfloat16()})
+    with pytest.raises(ValueError, match="above"):
+        b = ssd_inputs(g, dev, torch.float32, 1, 1, 8, 2, 16, 128)
+        ssd_chunk_fused(**b)
+    q = _rn(g, dev, 1, 9, 4, 48)
+    with pytest.raises(ValueError, match="head_dim"):
+        local_attention_fused(q, q[:, :, :2].contiguous(),
+                              q[:, :, :2].contiguous(), window=4)
+    q = _rn(g, dev, 1, 9, 4, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        local_attention_fused(q.transpose(1, 2).contiguous().transpose(1, 2),
+                              q[:, :, :2].contiguous(), q[:, :, :2].contiguous(),
+                              window=4)

@@ -291,7 +291,7 @@ def test_prefill_chunk_decode_verify_match_reference(monkeypatch):
 
 def test_unported_kinds_raise():
     jcfg, cfg = _cfgs()
-    for over in (dict(layer_pattern=("global", "recurrent")),
-                 dict(moe=object()), dict(frontend="vision_stub")):
+    for over in (dict(qk_norm=True), dict(moe=object()),
+                 dict(frontend="vision_stub")):
         with pytest.raises(NotImplementedError):
             tfm.init(cfg.replace(**over), torch.Generator().manual_seed(0))

@@ -1,6 +1,8 @@
 """Rules of the port: it imports neither jax nor anything of ``repro``;
 its entry points run on the card unless the caller asks for the CPU, and
-raise without one; on the CPU no kernel is launched."""
+raise without one; on the CPU no kernel is launched, and a CUDA tensor
+reaching a kernel's wrapper launches the kernel or raises, never the
+plain version."""
 import os
 import subprocess
 import sys
@@ -38,7 +40,7 @@ assert not bad, bad
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split()[0])
-    assert n >= 50      # every module of both slices was imported
+    assert n >= 63      # every module of the three slices was imported
 
 
 def test_forecaster_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -107,3 +109,52 @@ def test_cpu_forward_launches_no_kernel():
     plain = domst.forward(params, cfg, batch, domst.PLAIN)
     assert torch.equal(q, plain)
     assert pixcon_gate.launches == lstm_cell_fused.launches == 0
+
+
+class _CudaLike(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: what a wrapper sees when a
+    CUDA tensor reaches it."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _cuda_like(*shape, dtype=torch.float32):
+    return torch.randn(shape).to(dtype).as_subclass(_CudaLike)
+
+
+@pytest.mark.parametrize("name", ["conv1d", "ssd_chunk", "local_attn"])
+def test_new_wrappers_raise_on_a_cuda_tensor_without_a_card(monkeypatch,
+                                                            name):
+    """With no kernel to load (no card, no toolkit), each wrapper raises on
+    a CUDA tensor instead of computing its plain version."""
+    import importlib
+    from repro_torch.kernels import build
+    ops = importlib.import_module(f"repro_torch.kernels.{name}.ops")
+
+    def no_kernel(lib):
+        raise RuntimeError(f"no CUDA kernel library {lib}")
+    monkeypatch.setattr(build, "load", no_kernel)
+    ref_name = {"conv1d": "causal_conv1d_ref", "ssd_chunk": "ssd_chunk_ref",
+                "local_attn": "local_attention_ref"}[name]
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(ops, ref_name, plain)
+    if name == "conv1d":
+        fn, args, kw = ops.causal_conv1d, (_cuda_like(2, 5, 8),
+                                           _cuda_like(4, 8), _cuda_like(8)), \
+            {"activation": "silu"}
+    elif name == "ssd_chunk":
+        fn, kw = ops.ssd_chunk_fused, {}
+        args = (_cuda_like(1, 2, 4, 3, 16), _cuda_like(1, 2, 4, 3, 16),
+                _cuda_like(1, 2, 4, 3, 8), _cuda_like(1, 2, 3, 4))
+    else:
+        fn, kw = ops.local_attention_fused, {"window": 4}
+        args = (_cuda_like(1, 6, 4, 64), _cuda_like(1, 6, 2, 64),
+                _cuda_like(1, 6, 2, 64))
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="no CUDA kernel library"):
+        fn(*args, **kw)
+    assert fn.launches == before
