@@ -7,7 +7,10 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
 
 1. the card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel of the port's paths from ``src/repro_torch/
-   kernels/csrc``, timed (one ``nvcc`` per source, all six at once);
+   kernels/csrc``, timed (one ``nvcc`` per source, all six at once), with
+   the registers and spills ``ptxas -v`` reports; a spill store in a bf16,
+   D=256 instantiation of the two attention kernels (local attention on
+   the tensor cores, paged attention and its merge) fails the run;
 2. each kernel against its plain PyTorch version on the card, at its
    main path's shapes and at ragged ones, 1e-5 abs in fp32 (bf16 within
    2e-2, one bf16 ulp at |out| < 4): Pix-Con (also ``normalize=False``
@@ -24,7 +27,9 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    ``scaled_dot_product_attention`` over K/V gathered beforehand, the
    gather timed apart, or with a boolean band mask; ``F.conv1d`` with
    ``groups=C``, SiLU timed apart) — yardsticks only: the port never
-   calls them — beside the bound;
+   calls them — beside the bound; for each timed paged-attention shape,
+   the split of the page rows over blocks (pages a split, splits,
+   blocks);
 3. the Dom-ST main path: the Forecaster at full width (the ``domst``
    config, 23 watersheds, 400 days, 74 held-out days), params from the
    port's init with a fixed seed. With the launch counts set to 0 it runs
@@ -409,9 +414,10 @@ def graph_device_s(fc, params, placed, reference) -> float:
 
 def device_breakdown(fn, top: int = 8, host: bool = True) -> dict:
     """Device time by kernel over one call of ``fn``, from torch.profiler:
-    the rows of kernels that ran on the card (None where the profiler saw
-    no device activity: not measured). ``host=False`` records the device
-    activity alone, which keeps a long run's trace small."""
+    the ``top`` rows of kernels that ran on the card, then any row of the
+    port's LM kernels below them (None where the profiler saw no device
+    activity: not measured). ``host=False`` records the device activity
+    alone, which keeps a long run's trace small."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -425,10 +431,15 @@ def device_breakdown(fn, top: int = 8, host: bool = True) -> dict:
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
+    # the top rows, and every row of the port's LM kernels below them (a
+    # kernel's time per launch adds up all of its symbols)
+    ours = [r for r in rows[top:]
+            if any(sym in r[1] for syms in KERNEL_SYMBOLS.values()
+                   for sym in syms)]
     return {"wall_s": wall,
             "device_busy_s": sum(r[0] for r in rows) * 1e-6 if rows else None,
             "by_kernel": [{"kernel": k[:60], "device_ms": us * 1e-3,
-                           "calls": c} for us, k, c in rows[:top]]}
+                           "calls": c} for us, k, c in rows[:top] + ours]}
 
 
 def main_path(dev) -> dict:
@@ -614,7 +625,8 @@ def check_paged_attn(g, dev) -> dict:
     the main shapes."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attn.ops import paged_attention_fused
+    from repro_torch.kernels.paged_attn.ops import (
+        grid_of, paged_attention_fused, sm_count)
     from repro_torch.kernels.paged_attn.ref import paged_attention_ref
     Hq, Hkv, D, PS, N = 12, 2, 128, 16, LM_MAX_LEN // 16
     mid = [LM_PROMPT + LM_GEN // 2 - 2 * i for i in range(4)]   # mid-decode
@@ -691,15 +703,20 @@ def check_paged_attn(g, dev) -> dict:
             b_ms, b_by = bound_ms(*paged_work(a, **kw), BF16_OPS_PER_S
                                   if dtype == torch.bfloat16 else FP32_OPS_PER_S)
             tag = str(dtype).split(".")[-1]
+            pps, splits, blocks = grid_of(c["B"], c["T"], c["Hq"], c["Hkv"],
+                                          c["n"], sm_count(dev.index))
             row = {"shape": name, "dtype": tag, "B": c["B"], "T": c["T"],
                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "gather_ms": gather_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "library_vs_kernel_err": lib_err}
+                   "library_vs_kernel_err": lib_err,
+                   "pages_per_split": pps, "splits": splits, "blocks": blocks}
             shapes.append(row)
             print(f"  paged_attn {name} {tag}: kernel {ms * 1e3:.2f} us, plain "
                   f"{plain_ms * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us "
                   f"(+ gather {gather_ms * 1e3:.2f} us; agrees to "
-                  f"{lib_err:.1e}), bound {b_ms * 1e3:.3f} us ({b_by})")
+                  f"{lib_err:.1e}), bound {b_ms * 1e3:.3f} us ({b_by}); "
+                  f"{splits} split(s) of {pps} of {c['n']} pages, {blocks} "
+                  f"blocks{' + merge' if splits > 1 else ''}")
     head = shapes[0]                       # bf16 decode, the most launched
     return {"name": "paged_attn", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
@@ -1242,17 +1259,22 @@ def print_run(arch, name, r) -> None:
         busy = prof["device_busy_s"]
         print(f"    profiled repeat: wall {prof['wall_s']:.3f} s, device busy "
               f"{'not measured' if busy is None else f'{busy:.3f} s'}; "
-              "top kernels:")
-        for row in prof["by_kernel"][:12]:
-            print(f"      {row['device_ms']:9.2f} ms {row['calls']:7d}x "
-                  f"{row['kernel']}")
+              "top kernels, then the port's kernels below them:")
+        ours = lambda k: any(s in k for syms in KERNEL_SYMBOLS.values()
+                             for s in syms)
+        for i, row in enumerate(prof["by_kernel"]):
+            if i < 12 or ours(row["kernel"]):
+                print(f"      {row['device_ms']:9.2f} ms {row['calls']:7d}x "
+                      f"{row['kernel']}")
 
 
-# the device-side names of each LM kernel's launch (ssd_chunk launches two)
-KERNEL_SYMBOLS = {"paged_attn": ("paged_attn_kernel",),
+# the device-side names of each LM kernel's launch: ssd_chunk launches
+# two, paged_attn its merge as well where a call splits the page rows,
+# and local_attn's bf16 kernel (tensor cores) is another than its fp32 one
+KERNEL_SYMBOLS = {"paged_attn": ("paged_attn_kernel", "paged_attn_merge_kernel"),
                   "conv1d": ("conv1d_kernel",),
                   "ssd_chunk": ("ssd_y_kernel", "ssd_state_kernel"),
-                  "local_attn": ("local_attn_kernel",)}
+                  "local_attn": ("local_attn_kernel", "local_attn_mma_kernel")}
 
 
 def device_ms_per_launch(prof: dict) -> dict:
@@ -1575,6 +1597,46 @@ def _leaves(tree):
         yield tree
 
 
+# kernels whose bf16, D=256 instantiations must not spill: the mangled
+# names ptxas reports, by library
+NO_SPILL = {"local_attn": ("local_attn_mma_kernel",),
+            "paged_attn": ("paged_attn_kernel", "paged_attn_merge_kernel")}
+BF16_D256 = "I13__nv_bfloat16Li256E"      # template arguments <bf16, 256, ...>
+
+
+def ptxas_spills(log: str) -> dict:
+    """Bytes of spill stores by function, from a ``-Xptxas -v`` log."""
+    import re
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn is not None:
+            out[fn] = int(m.group(1))
+    return out
+
+
+def check_spills(libs: dict) -> None:
+    """Fail the run on any spill store in a bf16, D=256 instantiation of
+    the kernels in ``NO_SPILL``, and if the log names none of them."""
+    for lib, kernels in NO_SPILL.items():
+        log = libs[lib].with_suffix(".log")
+        spills = ptxas_spills(log.read_text() if log.exists() else "")
+        for kernel in kernels:
+            found = {fn: b for fn, b in spills.items()
+                     if kernel + BF16_D256 in fn}
+            check(bool(found), f"{lib}: no ptxas report for {kernel} "
+                  "at bf16, D=256")
+            for fn, nbytes in found.items():
+                print(f"    {lib}: {kernel} bf16 D=256 ({fn}): {nbytes} "
+                      "bytes spill stores")
+                check(nbytes == 0, f"{kernel} spills {nbytes} bytes at "
+                      "bf16, D=256")
+
+
 def main() -> int:
     try:
         import torch
@@ -1607,6 +1669,7 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
+    check_spills(libs)
 
     g = torch.Generator().manual_seed(1234)
     print(f"[2] kernels against their plain versions (at {time.perf_counter() - T_START:.0f} s)")

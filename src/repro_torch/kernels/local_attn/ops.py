@@ -11,14 +11,18 @@ length; the CUDA kernel bounds-checks instead, so any S runs as it is.
 What bounds it on the H100: at recurrentgemma-2b's longest prefill
 (S=2,560, window 2,048, 10 query heads on 1 KV head, D=256) the band
 holds ~31.5 M query-key pairs, ~32 GFLOP: ~33 us on the bf16 tensor
-cores, ~8.6 us of bytes. This first kernel does its products on the
-float32 CUDA cores (67 TFLOP/s) and sits far above that; the tensor cores
-are later work.
+cores, ~8.6 us of bytes. bf16 inputs go to a kernel whose two products
+run on the tensor cores (``mma.sync``, K/V tiles brought by ``cp.async``);
+float32 inputs to one on the float32 CUDA cores, exact to float32
+tolerances; see the source.
 
-The kernel computes in float32 and divides the score by sqrt(D), as the
-Pallas kernel does, where the reference's model code multiplies by the
-reciprocal and rounds through the activation dtype: in bfloat16 the two
-differ by a few ulps, in float32 they agree to rounding. On a CPU tensor
+The kernels divide the score by sqrt(D), as the Pallas kernel does, and
+keep the scores, the softmax state and the accumulator in float32, where
+the reference's model code multiplies by the reciprocal and rounds
+through the activation dtype: in bfloat16 the two differ by a few ulps,
+in float32 they agree to rounding. The bf16 kernel also rounds p to bf16
+for the P.V product (the Pallas kernel keeps it in float32), which moves
+an output by up to ~2^-9 of its row's largest |v|. On a CPU tensor
 the wrapper computes the plain version in ``ref.py``. On a CUDA tensor it
 launches the kernel or raises; nothing falls back.
 """

@@ -7,8 +7,11 @@ same GQA reshape: q (B,T,Hq,D) is read as (B,T,Hkv,G,D), a view.
 
 What bounds it on the H100: a launch must read each slot's assigned K/V
 pages once, plus q, pos and the output, at 3.35 TB/s. At the served
-shapes that is a few MB, a few microseconds, so a launch is bound by its
-latency and by the page walk each block makes in turn; see the source.
+shapes that is a few MB, a few microseconds, so a launch is bound by how
+many pages are in flight at once. The kernel therefore splits each slot's
+page row over blocks (split-K): ``plan_splits`` picks the pages a split
+takes so that decode and verify put at least one block on every SM, and
+a second kernel merges the splits' partial softmaxes; see the source.
 
 One kernel serves the three shapes of the paged path: decode (T=1),
 speculative verify (T=k+1) and a chunk of a prompt (T=chunk). On a CPU
@@ -18,6 +21,7 @@ tensor it launches the kernel or raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -27,15 +31,53 @@ from repro_torch.kernels.paged_attn.ref import paged_attention_ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 HEAD_DIMS = (64, 128, 256)          # instantiated in csrc/paged_attn.cu
-PAGE_SIZES = (4, 8, 16, 32)         # likewise; at most one key per lane
+PAGE_SIZES = (4, 8, 16, 32)         # likewise
+ROWS_PER_BLOCK = 16                 # kRows in csrc/paged_attn.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def plan_splits(B: int, Hkv: int, row_tiles: int, n: int,
+                sm_count: int) -> int:
+    """Pages of a slot's page row that one block takes (``pages_per_split``).
+
+    The kernel runs ``B * Hkv * row_tiles`` work items (16 query rows of
+    one slot and KV head each), every one split over ``ceil(n /
+    pages_per_split)`` blocks. Where the work items alone fill the
+    ``sm_count`` SMs (long chunks over several slots) there is one split
+    and no merge. Otherwise the splits are as large as they can be while
+    the blocks still reach ``sm_count`` times the row tiles a (slot, KV
+    head) has, up to 8: decode (one tile) is bound by bytes and wants few
+    partials to merge, a chunk of one slot (80 tiles at recurrentgemma-2b)
+    by its FMAs and wants several waves of blocks, so that the last wave
+    is short. A row too short for that gets one page a split."""
+    items = B * Hkv * row_tiles
+    if n <= 1 or items >= sm_count:
+        return max(n, 1)
+    need = -(-sm_count * min(row_tiles, 8) // items)    # splits per item
+    return max(1, n // need)
+
+
+def grid_of(B: int, T: int, Hq: int, Hkv: int, n: int,
+            sm_count: int) -> tuple[int, int, int]:
+    """(pages_per_split, splits, blocks of the first kernel) of a launch
+    with q (B,T,Hq,D) and page rows of ``n`` entries."""
+    row_tiles = -(-T * (Hq // Hkv) // ROWS_PER_BLOCK)
+    pps = plan_splits(B, Hkv, row_tiles, n, sm_count)
+    splits = max(1, -(-n // pps))
+    return pps, splits, B * Hkv * row_tiles * splits
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attn")
     fn = lib.paged_attn_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
+        fn.argtypes = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _I, _P]
         fn.restype = _I
     return lib
 
@@ -103,17 +145,23 @@ def paged_attention_fused(q: torch.Tensor, k_pool: torch.Tensor,
     _check(q, k_pool, v_pool, pos_pool, page_rows, qpos)
     B, T, Hq, D = q.shape
     ps, Hkv = k_pool.shape[1], k_pool.shape[2]
-    out = torch.empty_like(q)
+    n = page_rows.shape[1]
     lib = _lib()
+    pps, splits, _ = grid_of(B, T, Hq, Hkv, n, sm_count(q.device.index))
+    out = torch.empty_like(q)
+    # each split's float32 partial of every (slot, query row): acc[D], m, l
+    part = (torch.empty(B * splits * T * Hq * (D + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     rc = lib.paged_attn_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         pos_pool.data_ptr(), page_rows.data_ptr(), qpos.data_ptr(),
-        out.data_ptr(), B, T, Hkv, Hq // Hkv, D, page_rows.shape[1], ps,
-        int(window), float(softcap), _DTYPES[q.dtype], q.device.index,
+        out.data_ptr(), None if part is None else part.data_ptr(), B, T, Hkv,
+        Hq // Hkv, D, n, ps, pps, int(window), float(softcap),
+        _DTYPES[q.dtype], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(lib, rc, "paged_attention_fused")
     paged_attention_fused.launches += 1
     return out
 
 
-paged_attention_fused.launches = 0  # kernel launches since the count was last reset
+paged_attention_fused.launches = 0  # calls that launched the kernel (and its merge, if any)

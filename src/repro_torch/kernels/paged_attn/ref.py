@@ -25,13 +25,10 @@ import torch
 NEG_INF = -1e30
 
 
-def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
-                        v_pool: torch.Tensor, pos_pool: torch.Tensor,
-                        page_rows: torch.Tensor, qpos: torch.Tensor, *,
-                        window: int = 0, softcap: float = 0.0) -> torch.Tensor:
-    """q (B,T,Hq,D); k/v pool (P,ps,Hkv,D); pos pool (P,ps) absolute
-    positions (-1 empty); page_rows (B,n) page ids (-1 unassigned); qpos
-    (B,T) -> (B,T,Hq,D) in q's dtype, before the output projection."""
+def _masked_scores(q, k_pool, v_pool, pos_pool, page_rows, qpos, window,
+                   softcap):
+    """Gather the pages of ``page_rows`` (B,c) and score q against them:
+    (masked scores (B,Hkv,G,T,c*ps), mask, float32 v (B,c*ps,Hkv,D))."""
     B, T, Hq, D = q.shape
     ps, Hkv = k_pool.shape[1], k_pool.shape[2]
     G = Hq // Hkv
@@ -56,11 +53,53 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     mask = (kpb >= 0) & (kpb <= pq)
     if window:
         mask = mask & (pq - kpb < window)
-    s = torch.where(mask, s, NEG_INF)
+    return torch.where(mask, s, NEG_INF), mask, v
+
+
+def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, pos_pool: torch.Tensor,
+                        page_rows: torch.Tensor, qpos: torch.Tensor, *,
+                        window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """q (B,T,Hq,D); k/v pool (P,ps,Hkv,D); pos pool (P,ps) absolute
+    positions (-1 empty); page_rows (B,n) page ids (-1 unassigned); qpos
+    (B,T) -> (B,T,Hq,D) in q's dtype, before the output projection."""
+    B, T, Hq, D = q.shape
+    s, mask, v = _masked_scores(q, k_pool, v_pool, pos_pool, page_rows, qpos,
+                                window, softcap)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1)                                           # (B,Hkv,G,T)
     acc = torch.einsum("bhgtk,bkhd->bhgtd", p, v)
     out = acc / l.clamp(min=1e-30)[..., None]
     out = torch.where(l[..., None] > 0, out, 0.0)               # nothing to attend
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, D).to(q.dtype)
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, pos_pool: torch.Tensor,
+                              page_rows: torch.Tensor, qpos: torch.Tensor, *,
+                              pages_per_split: int, window: int = 0,
+                              softcap: float = 0.0) -> torch.Tensor:
+    """The kernel's split-K algorithm, plainly: each split of
+    ``pages_per_split`` page-table columns forms its partial softmax (m, l,
+    acc) with the same masks, and the partials merge as the merge kernel
+    does: m* = max m_s, out = sum acc_s e^(m_s - m*) / max(sum l_s
+    e^(m_s - m*), 1e-30), and 0 where sum l_s = 0. Equal to
+    ``paged_attention_ref`` up to float32 rounding."""
+    B, T, Hq, D = q.shape
+    n = page_rows.shape[1]
+    parts = []
+    for c0 in range(0, n, pages_per_split):
+        s, mask, v = _masked_scores(q, k_pool, v_pool, pos_pool,
+                                    page_rows[:, c0:c0 + pages_per_split],
+                                    qpos, window, softcap)
+        m = s.amax(dim=-1)                                      # -1e30: none
+        p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1), torch.einsum("bhgtk,bkhd->bhgtd", p, v)))
+    m_all = torch.stack([m for m, _, _ in parts])               # (S,B,Hkv,G,T)
+    e = torch.exp(m_all - m_all.amax(dim=0))
+    den = sum(l * e_s for (_, l, _), e_s in zip(parts, e))
+    num = sum(acc * e_s[..., None] for (_, _, acc), e_s in zip(parts, e))
+    out = num / den.clamp(min=1e-30)[..., None]
+    out = torch.where(den[..., None] > 0, out, 0.0)             # nothing to attend
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, D).to(q.dtype)

@@ -153,6 +153,39 @@ def test_paged_attn_kernel_matches_plain(dev, dtype, atol, T, Hq, Hkv, D, ps,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("T,Hq,Hkv,D,ps,window,softcap,n,pps", [
+    # G=10 at D=256 (recurrentgemma-2b's local layers), decode: splits of
+    # 2 pages, the first ones wholly outside slot 3's window (all dead)
+    (1, 10, 1, 256, 16, 40, 0.0, 9, 2),
+    (1, 10, 1, 256, 16, 40, 0.0, 9, 8),      # n = pps + 1: a 1-page split
+    (1, 10, 1, 256, 16, 40, 0.0, 9, 10),     # n = pps - 1: one split, no merge
+    (4, 10, 1, 256, 16, 0, 0.0, 10, 3),      # T*G = 40: tiles of 16, 16, 8
+    (3, 5, 1, 64, 4, 7, 50.0, 34, 5),        # T*G = 15 < 16, a softcap
+    (2, 12, 2, 128, 16, 0, 0.0, 9, 1),       # qwen2's heads, a page a split
+    (5, 8, 8, 64, 32, 30, 0.0, 6, 2),        # 32-key pages (two key groups)
+])
+def test_paged_attn_split_edges(dev, monkeypatch, dtype, atol, T, Hq, Hkv, D,
+                                ps, window, softcap, n, pps):
+    """Page rows split over blocks at the split's edges, with the split
+    forced: the merge of the partials against the plain version, one call
+    counted once whether one or two kernels ran."""
+    from repro_torch.kernels.paged_attn import ops
+    from repro_torch.kernels.paged_attn.ref import paged_attention_ref
+    monkeypatch.setattr(ops, "plan_splits", lambda *a: pps)
+    g = torch.Generator().manual_seed(T * 100 + n + pps)
+    a = _paged_case(g, dev, getattr(torch, dtype), 4, T, Hq, Hkv, D, ps, n,
+                    [37, 0, 5, 130])
+    before = ops.paged_attention_fused.launches
+    out = ops.paged_attention_fused(**a, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert ops.paged_attention_fused.launches == before + 1
+    ref = paged_attention_ref(**a, window=window, softcap=softcap)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    assert not out[1].any()            # slot 1 has no page
+
+
+@pytest.mark.cuda
 def test_paged_attn_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     from repro_torch.kernels.paged_attn.ops import paged_attention_fused
     g = torch.Generator().manual_seed(0)
@@ -267,6 +300,28 @@ def test_local_attn_kernel_matches_plain(dev, dtype, atol, B, S, Hq, Hkv, D,
     assert ops.local_attention_fused.launches == before + 1
     ref = local_attention_ref(**a, window=window, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 63, 64, 65, 129])
+def test_local_attn_bf16_tile_edges(dev, S, D, causal):
+    """The bf16 kernel (tensor cores, 16-row warp tiles, 32- or 64-key
+    tiles, 64-query blocks) at lengths on each side of its tile edges,
+    with a window (33) that cuts key tiles: 2e-2, one bf16 ulp at |out| <
+    4 (p is rounded to bf16 for P.V, ~2^-9 of the row's largest |v|)."""
+    from repro_torch.kernels.local_attn import ops
+    from repro_torch.kernels.local_attn.ref import local_attention_ref
+    g = torch.Generator().manual_seed(S * 10 + D + causal)
+    a = {n: _rn(g, dev, 2, S, h, D).to(torch.bfloat16)
+         for n, h in (("q", 4), ("k", 2), ("v", 2))}
+    before = ops.local_attention_fused.launches
+    out = ops.local_attention_fused(**a, window=33, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.local_attention_fused.launches == before + 1
+    ref = local_attention_ref(**a, window=33, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
 
 
 @pytest.mark.cuda

@@ -4,7 +4,9 @@ Pallas kernel run in interpret mode (``repro.kernels.paged_attn``).
 
 The inputs, made with numpy, include unassigned pages, recycled entries
 (``pos = -1``), a query at position -1 and a slot with no page at all, so
-rows with nothing to attend to come out 0 on both sides. Tolerances:
+rows with nothing to attend to come out 0 on both sides. The kernel's split-K
+algorithm (``paged_attention_split_ref``) is held against the plain
+version, and the split planner against the card's SM count. Tolerances:
 float32 within 2e-5, the reference's own kernel-vs-oracle bound; bfloat16
 within 2e-2 on outputs of magnitude < 4 (one bfloat16 ulp there is
 1.6e-2), since both round each score through bfloat16 and a score summed
@@ -20,8 +22,10 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.paged_attn.ops import paged_attention_fused as j_fused  # noqa: E402
 from repro.kernels.paged_attn.ref import paged_attention_ref as j_ref  # noqa: E402
-from repro_torch.kernels.paged_attn.ops import paged_attention_fused  # noqa: E402
-from repro_torch.kernels.paged_attn.ref import paged_attention_ref  # noqa: E402
+from repro_torch.kernels.paged_attn.ops import (  # noqa: E402
+    grid_of, paged_attention_fused, plan_splits)
+from repro_torch.kernels.paged_attn.ref import (  # noqa: E402
+    paged_attention_ref, paged_attention_split_ref)
 
 torch.set_num_threads(1)
 PS = 4
@@ -131,3 +135,73 @@ def test_wrapper_takes_cpu_tensors_only_through_plain_version():
     assert paged_attention_fused.launches == before
     with pytest.raises(ValueError, match="no kernel for device"):
         paged_attention_fused(*[a.to("meta") for a in args])
+
+
+def _torch_args(c, dtype):
+    td = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    return ([torch.tensor(c[k]).to(td) for k in ("q", "k", "v")]
+            + [torch.tensor(c[k]) for k in ("pos", "rows", "qpos")])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (5, 0.0), (0, 50.0),
+                                            (3, 30.0)])
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3, 4, 5])
+def test_split_ref_matches_plain(pages_per_split, window, softcap, dtype):
+    """The split-K algorithm (per-split partials merged as the merge kernel
+    merges them) equals the plain version within 1e-6, for splits of 1,
+    2, 3, n and n+1 of the n=4 page columns: with unassigned pages, an
+    empty slot, a query at position -1, windows of 5 and 3 that leave the
+    first splits of slot 3 with no attendable key, a softcap, and bf16
+    inputs, whose scores are rounded through bf16 on both sides."""
+    c = _case(pages_per_split * 10 + window, 3, 4, 2)
+    args = _torch_args(c, dtype)
+    kw = dict(window=window, softcap=softcap)
+    got = paged_attention_split_ref(*args, pages_per_split=pages_per_split,
+                                    **kw)
+    want = paged_attention_ref(*args, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=0)
+    assert not got[2].any() and not got[0, 0].any()
+    if window:         # slot 3 (13 tokens): its first page is out of reach
+        q3 = c["qpos"][3]
+        assert (c["pos"][c["rows"][3, 0]] <= q3.min() - window).all()
+
+
+# (B, T, Hq, Hkv, n): the decode and verify shapes of the served models,
+# their page rows as long as chip_smoke.py's queues make them
+SERVED = {"qwen2_decode": (4, 1, 12, 2, 36), "qwen2_verify": (4, 4, 12, 2, 36),
+          "rg_decode": (4, 1, 10, 1, 162), "rg_verify": (4, 4, 10, 1, 162)}
+
+
+@pytest.mark.parametrize("sms", [132, 114])      # H100 SXM and PCIe
+@pytest.mark.parametrize("shape", sorted(SERVED))
+def test_plan_splits_fills_the_card_at_decode_and_verify(shape, sms):
+    B, T, Hq, Hkv, n = SERVED[shape]
+    pps, splits, blocks = grid_of(B, T, Hq, Hkv, n, sms)
+    assert blocks >= sms
+    cols = [j for s in range(splits) for j in range(s * pps,
+                                                    min(n, (s + 1) * pps))]
+    assert cols == list(range(n))        # every page column exactly once
+
+
+@pytest.mark.parametrize("Hq,Hkv,n", [(12, 2, 36), (10, 1, 162)])
+def test_plan_splits_one_split_for_a_long_chunk(Hq, Hkv, n):
+    """A 128-token chunk over 4 slots fills the card with its row tiles
+    alone: one split, so no partials and no merge."""
+    pps, splits, blocks = grid_of(4, 128, Hq, Hkv, n, 132)
+    assert (pps, splits) == (n, 1) and blocks >= 132
+
+
+def test_plan_splits_covers_every_column_once():
+    for items in (1, 3, 8, 40, 200):
+        for n in (1, 2, 5, 17, 36, 131, 162):
+            for sms in (1, 78, 132):
+                pps = plan_splits(items, 1, 1, n, sms)
+                splits = -(-n // pps)
+                assert 1 <= pps <= n
+                assert (splits - 1) * pps < n <= splits * pps
+                if items < sms and n >= -(-sms // items):
+                    assert items * splits >= sms
+                if items >= sms:
+                    assert splits == 1
