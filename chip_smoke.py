@@ -14,12 +14,17 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
 2. each kernel against its plain PyTorch version on the card, at its
    main path's shapes and at ragged ones, 1e-5 abs in fp32 (bf16 within
    2e-2, one bf16 ulp at |out| < 4): Pix-Con (also ``normalize=False``
-   and a temperature other than 1), the LSTM step, paged attention
+   and a temperature other than 1), the LSTM step (also H not a multiple
+   of its 8-unit tile, D=1, and D+H that walks the weight ring), paged
+   attention
    (decode, verify and a 128-token prefill chunk of qwen2-1.5b, plus small
    shapes with a window, a softcap, unassigned pages and an empty row),
    the causal conv1d (mamba2-130m's and recurrentgemma-2b's prefill and
-   step shapes, C not a multiple of 128, S=1 with a tail, S > 2,048, S <
-   K-1), the SSD chunk (mamba2-130m's 512-token prefill, Q in {5, 200,
+   step shapes, C not a multiple of 128 or of the 8-channel vector, S=1
+   and S=2 with a tail, S > 2,048, S < K-1, an input viewed at an odd
+   storage offset, at a decode size and at a size the 16-byte path would
+   take, which must go the scalar path; K=5; the new tail it writes to the
+   bit), the SSD chunk (mamba2-130m's 512-token prefill, Q in {5, 200,
    256}) and local attention (recurrentgemma-2b's 2,560- and 600-token
    prefills, S not a tile multiple, non-causal, Hkv = Hq and MQA); the
    time of a launch, of the plain version and of one PyTorch call
@@ -29,7 +34,9 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    ``groups=C``, SiLU timed apart) — yardsticks only: the port never
    calls them — beside the bound; for each timed paged-attention shape,
    the split of the page rows over blocks (pages a split, splits,
-   blocks);
+   blocks); and for conv1d and the LSTM step, beside each timed shape,
+   the host time of a call (``host_us``) and the device time of a launch
+   (``device_us``, torch.profiler);
 3. the Dom-ST main path: the Forecaster at full width (the ``domst``
    config, 23 watersheds, 400 days, 74 held-out days), params from the
    port's init with a fixed seed. With the launch counts set to 0 it runs
@@ -195,8 +202,62 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_in_turns(fns, rounds: int = 5, iters: int = 200) -> list:
+    """Median time of one call of each of ``fns`` (``time_ms``), timed in
+    turns over ``rounds`` rounds: the host's load drifts within a run, and
+    calls whose time is the host's are compared only side by side."""
+    runs = [[] for _ in fns]
+    for _ in range(rounds):
+        for r, fn in zip(runs, fns):
+            r.append(time_ms(fn, iters=iters))
+    return [sorted(r)[len(r) // 2] for r in runs]
+
+
 def max_err(a, b) -> float:
     return float((a - b).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Host time of a wrapper call
+# ---------------------------------------------------------------------------
+# calls timed by the host clock, no synchronise inside: 5 runs of 200 (a
+# kernel that takes longer on the card than its call on the host falls
+# only ~200 launches behind, short of filling the launch queue)
+HOST_CALLS, HOST_RUNS = 200, 5
+
+
+def host_us(fn, calls: int = HOST_CALLS, repeats: int = HOST_RUNS) -> float:
+    """Host time of one call of ``fn`` in microseconds: the host clock over
+    ``calls`` calls with no synchronise inside (the card runs behind),
+    median of ``repeats`` runs."""
+    import torch
+    for _ in range(20):
+        fn()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return sorted(runs)[len(runs) // 2]
+
+
+def launch_device_us(fn, symbol: str, n: int = 50) -> float | None:
+    """Device time of one launch of ``fn``'s kernel (torch.profiler over
+    ``n`` calls; every kernel whose name holds ``symbol``)."""
+    prof = device_breakdown(lambda: [fn() for _ in range(n)], top=64,
+                            host=False)
+    rows = [r for r in prof["by_kernel"] if symbol in r["kernel"]]
+    return sum(r["device_ms"] for r in rows) * 1e3 / n if rows else None
+
+
+def conv_args(g, dev, dtype, B, S, C, K, tail) -> dict:
+    return dict(x=rn(g, dev, B, S, C).to(dtype),
+                w=rn(g, dev, K, C, s=0.5).to(dtype),
+                b=rn(g, dev, C, s=0.1).to(dtype),
+                tail=rn(g, dev, B, K - 1, C).to(dtype) if tail else None)
 
 
 # ---------------------------------------------------------------------------
@@ -275,23 +336,34 @@ def check_lstm(g, dev) -> dict:
     import torch
     from repro_torch.kernels.lstm_cell.ops import lstm_cell_fused
     from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
     err = 0.0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     main_shapes = [(WATERSHEDS, 1, 128, 64), (WATERSHEDS, 1, 64, 64)]
-    for shape in main_shapes + [(3, 5, 48, 160), (1, WATERSHEDS, 128, 64)]:
+    # beside them: several examples a block, H not a multiple of the unit
+    # tile, D = 1, and a K that walks the weight tile through the ring
+    for shape in main_shapes + [(3, 5, 48, 160), (1, WATERSHEDS, 128, 64),
+                                (4, 2, 7, 50), (5, 3, 1, 64), (2, 3, 4000, 64)]:
         a = lstm_inputs(g, dev, *shape)
         h, c = lstm_cell_fused(**a)
         torch.cuda.synchronize()
         ref_h, ref_c = lstm_cell_ref(**a)
         e = max(max_err(h, ref_h), max_err(c, ref_c))
-        print(f"  lstm_cell (R,B,D,H)={shape}: max_abs_err={e:.3e}")
+        p = lstm_ops.plan_lstm(*shape, sms)
+        print(f"  lstm_cell (R,B,D,H)={shape}: max_abs_err={e:.3e}, "
+              f"{p.blocks} blocks of {p.bt} x {p.ju}, {p.stages} stage(s) "
+              f"of {p.rows} rows, {p.smem} B shared memory")
         check(e <= ATOL_KERNEL, f"lstm_cell {shape}: error {e} > {ATOL_KERNEL}")
         err = max(err, e)
     # Times per launch, averaged over the two layers' shapes: the forecast
     # launches each equally often (74 days x 30 steps).
-    ms, plain_ms, b_ms, lib_ms, lib_shape_ms = [], [], [], [], []
+    ms, plain_ms, b_ms, lib_ms, lib_shape_ms, hosts, devs = ([] for _ in range(7))
     for R, B, D, H in main_shapes:
         a = lstm_inputs(g, dev, R, B, D, H)
         ms.append(time_ms(lambda: lstm_cell_fused(**a)))
+        hosts.append(host_us(lambda: lstm_cell_fused(**a)))
+        devs.append(launch_device_us(lambda: lstm_cell_fused(**a),
+                                     "lstm_cell_kernel"))
         plain_ms.append(time_ms(lambda: lstm_cell_ref(**a)))
         nbytes, ops = lstm_work(R, B, D, H)
         b_ms.append(bound_ms(nbytes, ops))
@@ -309,11 +381,15 @@ def check_lstm(g, dev) -> dict:
         kh, kc = lstm_cell_fused(**one)
         e = max(max_err(lh, kh[0]), max_err(lc, kc[0]))
         check(e <= ATOL_KERNEL, f"torch.lstm_cell disagrees with the kernel: {e}")
-        lib_ms.append(time_ms(
-            lambda: torch.lstm_cell(x1, (h1, c1), w_ih, w_hh, b_ih, b_hh)))
-        lib_shape_ms.append(time_ms(lambda: lstm_cell_fused(**one)))
+        lib_t, kernel_t = time_in_turns([
+            lambda: torch.lstm_cell(x1, (h1, c1), w_ih, w_hh, b_ih, b_hh),
+            lambda: lstm_cell_fused(**one)])
+        lib_ms.append(lib_t)
+        lib_shape_ms.append(kernel_t)
         print(f"  lstm_cell (R,B,D,H)={(R, B, D, H)}: kernel "
-              f"{ms[-1] * 1e3:.2f} us, plain {plain_ms[-1] * 1e3:.2f} us, "
+              f"{ms[-1] * 1e3:.2f} us (host {hosts[-1]:.2f} us a call, "
+              f"device {devs[-1]} us a launch), "
+              f"plain {plain_ms[-1] * 1e3:.2f} us, "
               f"bound {b_ms[-1][0] * 1e3:.3f} us ({b_ms[-1][1]}); at R=1 B=23: "
               f"torch.lstm_cell {lib_ms[-1] * 1e3:.2f} us, kernel "
               f"{lib_shape_ms[-1] * 1e3:.2f} us (agree to {e:.1e})")
@@ -323,7 +399,8 @@ def check_lstm(g, dev) -> dict:
     return {"name": "lstm_cell", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
             "replaces": "src/repro/kernels/lstm_cell/kernel.py:18",
-            "max_abs_err": err, "ms": mean(ms), "plain_ms": mean(plain_ms),
+            "max_abs_err": err, "ms": mean(ms), "host_us": mean(hosts),
+            "device_us_by_layer": devs, "plain_ms": mean(plain_ms),
             "bound_ms": mean([b for b, _ in b_ms]),
             "bound_by": b_ms[0][1], "library_ms": mean(lib_ms),
             "shape": "R=23 B=1 H=64, D=128 and D=64 (mean of the two layers)",
@@ -543,7 +620,7 @@ def main_path(dev) -> dict:
     device_ms = {}
     for name, kernel in (("pixcon", "pixcon_gate_kernel"),
                          ("lstm_cell", "lstm_cell_kernel")):
-        hit = [r for r in prof["by_kernel"] if r["kernel"].startswith(kernel)]
+        hit = [r for r in prof["by_kernel"] if kernel in r["kernel"]]
         device_ms[name] = hit[0]["device_ms"] / hit[0]["calls"] if hit else None
     return launches, device_ms
 
@@ -764,53 +841,75 @@ def check_conv1d(g, dev) -> dict:
     shapes (mamba2-130m's 512-token prefill layer with SiLU, C=1,792;
     recurrentgemma-2b's 2,560-token prefill layer without, C=2,560; a
     4-slot decode step with a tail) and ragged ones (C not a multiple of
-    128, S=1 with a tail, S > 2,048, S < K-1), fp32 and bf16; then times,
-    beside ``F.conv1d(groups=C)`` on the left-padded input."""
+    128 or of the 8-channel vector, S=1 and S=2 with a tail, S > 2,048,
+    S < K-1, an input that is a view at an odd storage offset, at a decode
+    size and at one the 16-byte path would take, K=5 read without the
+    register window), fp32 and bf16, the new tail to the bit; an input off
+    16-byte alignment must take the scalar path (``plan_conv``); then
+    times, beside ``F.conv1d(groups=C)`` on the left-padded input."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.conv1d import ops as conv_ops
     from repro_torch.kernels.conv1d.ops import causal_conv1d
     from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
-    cases = [("mamba2_prefill", 1, 512, 1792, 4, "silu", False),
-             ("rg_prefill", 1, 2560, 2560, 4, "none", False),
-             ("mamba2_decode", 4, 1, 1792, 4, "silu", True),
-             ("rg_verify", 4, 4, 2560, 4, "none", True),
-             ("ragged_c", 2, 37, 130, 4, "silu", True),
-             ("long_s", 1, 3000, 200, 4, "none", False),
-             ("s_below_k", 3, 2, 96, 4, "silu", True)]
+    # name, B, S, C, K, activation, tail, storage offset of x
+    cases = [("mamba2_prefill", 1, 512, 1792, 4, "silu", False, 0),
+             ("rg_prefill", 1, 2560, 2560, 4, "none", False, 0),
+             ("mamba2_decode", 4, 1, 1792, 4, "silu", True, 0),
+             ("rg_verify", 4, 4, 2560, 4, "none", True, 0),
+             ("ragged_c", 2, 37, 130, 4, "silu", True, 0),
+             ("c_1794", 1, 64, 1794, 4, "silu", True, 0),
+             ("long_s", 1, 3000, 200, 4, "none", False, 0),
+             ("s_3000", 1, 3000, 1792, 4, "silu", False, 0),
+             ("s_below_k", 3, 2, 96, 4, "silu", True, 0),
+             ("odd_offset", 2, 1, 1792, 4, "silu", True, 1),
+             ("odd_offset_wide", 1, 128, 1792, 4, "silu", True, 1),
+             ("k5", 2, 19, 512, 5, "silu", True, 0)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = {"float32": 0.0, "bfloat16": 0.0}
     for dtype, atol in ((torch.float32, ATOL_KERNEL),
                         (torch.bfloat16, ATOL_BF16)):
         tag = str(dtype).split(".")[-1]
-        for name, B, S, C, K, act, tail in cases:
-            a = dict(x=rn(g, dev, B, S, C).to(dtype),
-                     w=rn(g, dev, K, C, s=0.5).to(dtype),
-                     b=rn(g, dev, C, s=0.1).to(dtype),
-                     tail=rn(g, dev, B, K - 1, C).to(dtype) if tail else None)
-            out = causal_conv1d(**a, activation=act)
+        for name, B, S, C, K, act, tail, off in cases:
+            a = conv_args(g, dev, dtype, B, S, C, K, tail)
+            a["x"] = torch.cat([a["x"].flatten()[:off],
+                                a["x"].flatten()])[off:].view(B, S, C)
+            y, new_tail = causal_conv1d(**a, activation=act)
             torch.cuda.synchronize()
-            ref = causal_conv1d_ref(**a, activation=act)
-            err[tag] = max(err[tag], check_kernel_case(
-                "conv1d", f"{name} {tag} B={B} S={S} C={C} K={K} {act}",
-                out, ref, atol))
+            ref_y, ref_tail = causal_conv1d_ref(**a, activation=act)
+            what = f"{name} {tag} B={B} S={S} C={C} K={K} {act}"
+            err[tag] = max(err[tag], check_kernel_case("conv1d", what, y,
+                                                       ref_y, atol))
+            check_kernel_case("conv1d", what + " new tail", new_tail,
+                              ref_tail, 0.0)
+            ptrs = [a["x"].data_ptr(), 0 if a["tail"] is None
+                    else a["tail"].data_ptr(), a["w"].data_ptr(),
+                    a["b"].data_ptr(), y.data_ptr(), new_tail.data_ptr()]
+            p = conv_ops.plan_conv(B, S, C, a["x"].element_size(),
+                                   all(q % 16 == 0 for q in ptrs), sms)
+            print(f"    {'vector' if p.vector else 'scalar'} path, runs of "
+                  f"{p.run}, {p.blocks} blocks")
+            if off * a["x"].element_size() % 16:
+                check(not p.vector, f"conv1d {what}: an input off 16-byte "
+                      "alignment was planned on the vector path")
     shapes = []
-    for name, B, S, C, K, act, tail in cases[:4]:
+    for name, B, S, C, K, act, tail, _ in cases[:4]:
         for dtype in (torch.bfloat16, torch.float32):
-            a = dict(x=rn(g, dev, B, S, C).to(dtype),
-                     w=rn(g, dev, K, C, s=0.5).to(dtype),
-                     b=rn(g, dev, C, s=0.1).to(dtype),
-                     tail=rn(g, dev, B, K - 1, C).to(dtype) if tail else None)
-            ms = time_ms(lambda: causal_conv1d(**a, activation=act))
+            a = conv_args(g, dev, dtype, B, S, C, K, tail)
+            call = lambda: causal_conv1d(**a, activation=act)  # noqa: E731
             plain_ms = time_ms(lambda: causal_conv1d_ref(**a, activation=act),
                                iters=50)
             # the library's depthwise conv over the left-padded (B, C, S+K-1)
-            # input; SiLU timed apart
+            # input; SiLU timed apart; kernel and library timed in turns
             pad = a["tail"] if tail else torch.zeros_like(a["x"][:, :K - 1])
             xp = torch.cat([pad, a["x"]], 1).transpose(1, 2).contiguous()
             wl = a["w"].t().contiguous()[:, None, :]
-            lib = lambda: F.conv1d(xp, wl, a["b"], groups=C)
-            lib_ms = time_ms(lib)
-            silu_ms = time_ms(lambda: F.silu(lib())) - lib_ms \
-                if act == "silu" else 0.0
+            lib = lambda: F.conv1d(xp, wl, a["b"], groups=C)  # noqa: E731
+            ms, lib_ms, lib_silu_ms = time_in_turns(
+                [call, lib, lambda: F.silu(lib())])
+            silu_ms = lib_silu_ms - lib_ms if act == "silu" else 0.0
+            call_host_us = host_us(call)
+            device_us = launch_device_us(call, "conv1d_kernel")
             ref_y = causal_conv1d(**a, activation="none")[0].float()
             lib_err = max_err(lib().transpose(1, 2).float(), ref_y)
             esize = a["x"].element_size()
@@ -818,11 +917,15 @@ def check_conv1d(g, dev) -> dict:
                                                act == "silu"))
             tag = str(dtype).split(".")[-1]
             shapes.append({"shape": name, "dtype": tag, "B": B, "S": S,
-                           "C": C, "ms": ms, "plain_ms": plain_ms,
+                           "C": C, "ms": ms, "host_us": call_host_us,
+                           "device_us": device_us,
+                           "plain_ms": plain_ms,
                            "library_ms": lib_ms, "library_silu_ms": silu_ms,
                            "bound_ms": b_ms, "bound_by": b_by,
                            "library_vs_kernel_err": lib_err})
-            print(f"  conv1d {name} {tag}: kernel {ms * 1e3:.2f} us, plain "
+            print(f"  conv1d {name} {tag}: kernel {ms * 1e3:.2f} us (host "
+                  f"{call_host_us:.2f} us a call, device {device_us} us a "
+                  "launch), plain "
                   f"{plain_ms * 1e3:.2f} us, F.conv1d {lib_ms * 1e3:.2f} us "
                   f"(+ SiLU {silu_ms * 1e3:.2f} us; agrees to {lib_err:.1e}),"
                   f" bound {b_ms * 1e3:.3f} us ({b_by})")
@@ -831,7 +934,8 @@ def check_conv1d(g, dev) -> dict:
             "source": "src/repro_torch/kernels/csrc/conv1d.cu",
             "replaces": "src/repro/kernels/conv1d/kernel.py:25",
             "max_abs_err": max(err.values()), "max_abs_err_by_dtype": err,
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "host_us": head["host_us"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "shape": "bf16 mamba2-130m prefill layer: B=1 S=512 C=1792 K=4 "
@@ -1280,14 +1384,18 @@ KERNEL_SYMBOLS = {"paged_attn": ("paged_attn_kernel", "paged_attn_merge_kernel")
 def device_ms_per_launch(prof: dict) -> dict:
     """Device time of one launch of each LM kernel in a profiled run: its
     kernels' device time over their launches (None: not in the profile's
-    top rows)."""
+    top rows). A launch runs each symbol once (ssd_chunk's two kernels) or
+    not at all (paged_attn's merge), and a symbol's instantiations are
+    alternatives (conv1d's vector and scalar paths): the launches are the
+    most calls any one symbol has over all its instantiations."""
     out = {}
     for name, syms in KERNEL_SYMBOLS.items():
+        calls = [sum(r["calls"] for r in prof["by_kernel"] if sym in r["kernel"])
+                 for sym in syms]
         rows = [r for r in prof["by_kernel"]
                 if any(sym in r["kernel"] for sym in syms)]
         if rows:
-            out[name] = sum(r["device_ms"] for r in rows) / \
-                max(r["calls"] for r in rows)
+            out[name] = sum(r["device_ms"] for r in rows) / max(calls)
     return out
 
 
@@ -1704,6 +1812,7 @@ def main() -> int:
         k["device_ms_per_launch_on_main_path"] = {
             arch: device_ms_per_launch(res["profile"]).get(k["name"])
             for arch, res in by_model.items() if arch in k["launches_by_mode"]}
+    print(f"[7] all phases passed in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,10 @@ SOURCES = ("pixcon", "lstm_cell", "paged_attn", "conv1d", "ssd_chunk",
 # tolerances, and expf/tanhf must stay the accurate library functions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Libraries whose calls keep the GIL rather than release and take it
+# again: launch functions that return at once and run thousands of times
+# a forward (the LSTM step, the conv1d of every recurrent layer).
+KEEP_GIL = ("conv1d", "lstm_cell")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -84,10 +88,12 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed;
+    those in ``KEEP_GIL`` as a ``PyDLL``."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build((name,))[name]))
+        kind = ctypes.PyDLL if name in KEEP_GIL else ctypes.CDLL
+        lib = kind(str(build((name,))[name]))
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

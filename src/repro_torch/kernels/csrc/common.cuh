@@ -27,6 +27,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
+// Make `device` current, skipping cudaSetDevice where it already is (a
+// launch function's host time is part of every call).
+inline cudaError_t use_device(int device) {
+  int cur = -1;
+  if (cudaGetDevice(&cur) == cudaSuccess && cur == device) return cudaSuccess;
+  return cudaSetDevice(device);
+}
+
 // Raise a kernel's dynamic shared memory limit above the default 48 KB.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -500,7 +500,7 @@ REPRO_EXPORT int local_attn_launch(const void* q, const void* k, const void* v,
                                    void* out, int B, int S, int Hq, int Hkv,
                                    int D, int window, int causal, int dtype,
                                    int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || S == 0) return 0;
   err = launch_d(dtype, D, q, k, v, out, B, S, Hq, Hkv, window, causal,

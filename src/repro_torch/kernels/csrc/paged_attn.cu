@@ -556,7 +556,7 @@ REPRO_EXPORT int paged_attn_launch(const void* q, const void* k_pool,
                                    int pages_per_split, int window,
                                    float softcap, int dtype, int device,
                                    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || Tq == 0) return 0;
   if (pages_per_split < 1) return static_cast<int>(cudaErrorInvalidValue);

@@ -93,7 +93,7 @@ REPRO_EXPORT int pixcon_gate_launch(const float* x, const float* feats,
                                     int T, int P, int F, int Hp,
                                     float inv_temp, int normalize,
                                     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = 256;
   const size_t smem = (static_cast<size_t>(P) + 1) * sizeof(float);

@@ -256,7 +256,7 @@ REPRO_EXPORT int ssd_chunk_launch(const void* C, const void* Bm, const void* X,
                                   const float* dA, void* Y, float* ST, int BN,
                                   int Q, int H, int N, int P, int dtype,
                                   int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (BN == 0 || Q == 0 || H == 0) return 0;
   if (N > 256 || P > 64) return static_cast<int>(cudaErrorInvalidValue);

@@ -21,11 +21,11 @@ tensor it launches the kernel or raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import sm_count
 from repro_torch.kernels.paged_attn.ref import paged_attention_ref
 
 _P = ctypes.c_void_p
@@ -65,12 +65,6 @@ def grid_of(B: int, T: int, Hq: int, Hkv: int, n: int,
     pps = plan_splits(B, Hkv, row_tiles, n, sm_count)
     splits = max(1, -(-n // pps))
     return pps, splits, B * Hkv * row_tiles * splits
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device_index: int) -> int:
-    """Streaming multiprocessors of a CUDA device (cached)."""
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _lib() -> ctypes.CDLL:

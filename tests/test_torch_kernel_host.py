@@ -1,0 +1,364 @@
+"""The host side of the conv1d and LSTM-step wrappers, on the CPU: their
+input checks, the launch plans they pass to ``csrc/conv1d.cu`` and
+``csrc/lstm_cell.cu`` (``plan_conv``, ``plan_lstm``), and the arguments
+they pack for a launch. No card is needed: a CPU tensor that reports a
+CUDA device takes the wrapper down its CUDA path, where the checks run and
+the kernel library, absent here, raises (or a stand-in records the packed
+arguments). Nothing of the reference package is imported."""
+import struct
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.common import check_activations, check_inputs  # noqa: E402
+from repro_torch.kernels.conv1d import ops as conv_ops  # noqa: E402
+from repro_torch.kernels.lstm_cell import ops as lstm_ops  # noqa: E402
+
+SMEM_LIMIT = 232448          # bytes of shared memory a block can use on an H100
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports CUDA device 0 wherever a wrapper asks."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+    def get_device(self):
+        return 0
+
+
+def _card(*shape, dtype=torch.float32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(dtype).as_subclass(_OnCard)
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    """A wrapper whose checks pass reaches the kernel library: here it
+    raises instead of loading one."""
+    def load(name):
+        raise RuntimeError(f"no CUDA kernel library {name}")
+    monkeypatch.setattr(build, "load", load)
+
+
+def _raised(fn):
+    try:
+        fn()
+    except Exception as e:          # noqa: BLE001 - the exception is the result
+        return type(e), str(e)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# conv1d: each fault raises what ``check_activations`` raises for it
+# ---------------------------------------------------------------------------
+def _conv_inputs():
+    return dict(x=_card(2, 5, 8), w=_card(4, 8, seed=1), b=_card(8, seed=2),
+                tail=_card(2, 3, 8, seed=3))
+
+
+CONV_FAULTS = {
+    "w_float64": (TypeError, lambda a: {**a, "w": a["w"].double()}),
+    "w_bf16_x_fp32": (TypeError, lambda a: {**a, "w": a["w"].bfloat16()}),
+    "x_float16": (TypeError, lambda a: {k: v.half() for k, v in a.items()}),
+    "x_not_contiguous": (ValueError, lambda a: {
+        **a, "x": a["x"].transpose(1, 2).contiguous().transpose(1, 2)}),
+    "tail_not_contiguous": (ValueError, lambda a: {
+        **a, "tail": a["tail"].transpose(0, 1).contiguous().transpose(0, 1)}),
+    "w_wrong_width": (ValueError, lambda a: {**a, "w": _card(4, 6)}),
+    "b_wrong_shape": (ValueError, lambda a: {**a, "b": _card(9)}),
+    "tail_wrong_shape": (ValueError, lambda a: {**a, "tail": _card(2, 2, 8)}),
+    "w_on_cpu": (ValueError, lambda a: {**a, "w": torch.randn(4, 8)}),
+    "tail_on_cpu": (ValueError, lambda a: {**a, "tail": torch.randn(2, 3, 8)}),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(CONV_FAULTS))
+def test_conv1d_checks_raise_as_before(no_library, fault):
+    kind, make = CONV_FAULTS[fault]
+    a = make(_conv_inputs())
+    got = _raised(lambda: conv_ops.causal_conv1d(**a, activation="silu"))
+    K, C = a["w"].shape[0], a["x"].shape[2]
+    want = _raised(lambda: check_activations(
+        "causal_conv1d", a, dict(w=(K, C), b=(C,), tail=(2, K - 1, C))))
+    assert want is not None and want[0] is kind
+    assert got == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_tail", [False, True])
+def test_conv1d_inputs_that_pass_reach_the_kernel(no_library, dtype, with_tail):
+    a = {k: v.to(dtype) for k, v in _conv_inputs().items()}
+    if not with_tail:
+        a["tail"] = None
+    before = conv_ops.causal_conv1d.launches
+    with pytest.raises(RuntimeError, match="no CUDA kernel library"):
+        conv_ops.causal_conv1d(**a)
+    assert conv_ops.causal_conv1d.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The LSTM step: each fault raises what ``check_inputs`` raises for it
+# ---------------------------------------------------------------------------
+def _lstm_inputs(R=2, B=1, D=8, H=16):
+    return dict(x=_card(R, B, D), h=_card(R, B, H, seed=1),
+                c=_card(R, B, H, seed=2), wx=_card(R, D, 4, H, seed=3),
+                wh=_card(R, H, 4, H, seed=4), b=_card(R, 4, H, seed=5))
+
+
+LSTM_FAULTS = {
+    "h_bf16": (TypeError, lambda a: {**a, "h": a["h"].bfloat16()}),
+    "wx_float64": (TypeError, lambda a: {**a, "wx": a["wx"].double()}),
+    "wx_not_contiguous": (ValueError, lambda a: {
+        **a, "wx": a["wx"].transpose(1, 3).contiguous().transpose(1, 3)}),
+    "wh_wrong_shape": (ValueError, lambda a: {**a, "wh": _card(2, 16, 4, 8)}),
+    "b_wrong_shape": (ValueError, lambda a: {**a, "b": _card(2, 4, 8)}),
+    "c_on_cpu": (ValueError, lambda a: {**a, "c": torch.randn(2, 1, 16)}),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(LSTM_FAULTS))
+def test_lstm_checks_raise_as_before(no_library, fault):
+    kind, make = LSTM_FAULTS[fault]
+    a = make(_lstm_inputs())
+    got = _raised(lambda: lstm_ops.lstm_cell_fused(**a))
+    want = _raised(lambda: check_inputs(
+        "lstm_cell_fused", a, dict(h=(2, 1, 16), c=(2, 1, 16),
+                                   wx=(2, 8, 4, 16), wh=(2, 16, 4, 16),
+                                   b=(2, 4, 16))))
+    assert want is not None and want[0] is kind
+    assert got == want
+
+
+def test_lstm_inputs_that_pass_reach_the_kernel(no_library):
+    before = lstm_ops.lstm_cell_fused.launches
+    with pytest.raises(RuntimeError, match="no CUDA kernel library"):
+        lstm_ops.lstm_cell_fused(**_lstm_inputs())
+    assert lstm_ops.lstm_cell_fused.launches == before
+    with pytest.raises(ValueError, match="exceeds"):
+        lstm_ops.lstm_cell_fused(**_lstm_inputs(R=1, D=12 * 1024, H=4))
+
+
+# ---------------------------------------------------------------------------
+# What a wrapper packs for its launch: the tensors, the shape and the plan
+# ---------------------------------------------------------------------------
+class _Library:
+    """Stands in for a kernel library: records the int64 fields of each
+    launch's packed argument and returns success."""
+
+    def __init__(self, fields):
+        self.fields, self.calls = fields, []
+
+    def __getattr__(self, name):        # conv1d_launch, lstm_cell_launch
+        def launch(packed):
+            self.calls.append(struct.unpack(f"{self.fields}q", packed))
+            return 0
+        return launch
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """The wrappers launch into a ``_Library``; their launch counts are put
+    back afterwards (other tests read them from 0)."""
+    libs = {conv_ops: _Library(17), lstm_ops: _Library(21)}
+    for fn in (conv_ops.causal_conv1d, lstm_ops.lstm_cell_fused):
+        monkeypatch.setattr(fn, "launches", fn.launches)
+    for ops, lib in libs.items():
+        monkeypatch.setattr(ops, "_lib", lambda lib=lib: lib)
+        monkeypatch.setattr(ops, "sm_count", lambda dev: 132)
+        monkeypatch.setattr(ops, "stream_handle", lambda dev: 0)
+    return libs
+
+
+@pytest.mark.parametrize("dtype,offset,vector", [
+    (torch.bfloat16, 0, True), (torch.bfloat16, 1, False),
+    (torch.float32, 0, True), (torch.float32, 1, False),
+    (torch.float32, 4, True)])
+def test_conv1d_launch_takes_the_scalar_plan_off_alignment(recorded, dtype,
+                                                           offset, vector):
+    """At a size where the plan takes 16-byte vectors (B=1, S=128,
+    C=1,792), an input viewed at a storage offset that breaks 16-byte
+    alignment is launched on the scalar path."""
+    B, S, C, K = 1, 128, 1792, 4
+    x = _card(offset + B * S * C, dtype=dtype)[offset:].view(B, S, C)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    w, b = _card(K, C, dtype=dtype, seed=1), _card(C, dtype=dtype, seed=2)
+    tail = _card(B, K - 1, C, dtype=dtype, seed=3)
+    before = conv_ops.causal_conv1d.launches
+    y, new_tail = conv_ops.causal_conv1d(x, w, b, activation="silu", tail=tail)
+    assert conv_ops.causal_conv1d.launches == before + 1
+    (a,) = recorded[conv_ops].calls
+    assert a[:6] == (x.data_ptr(), tail.data_ptr(), w.data_ptr(),
+                     b.data_ptr(), y.data_ptr(), new_tail.data_ptr())
+    bf16 = dtype is torch.bfloat16
+    assert a[6:11] == (B, S, C, K, 1 | (2 if bf16 else 0))
+    p = conv_ops.plan_conv(B, S, C, x.element_size(), vector, 132)
+    assert p.vector is vector
+    assert a[13:] == (p.vector, p.run, p.runs, p.blocks)
+
+
+@pytest.mark.parametrize("offset,vec16", [(0, True), (1, False)])
+def test_lstm_launch_takes_its_plan(recorded, offset, vec16):
+    """The forecast's first layer; wx viewed at a storage offset that
+    breaks 16-byte alignment takes 4-byte copies."""
+    R, B, D, H = 23, 1, 128, 64
+    a = _lstm_inputs(R, B, D, H)
+    a["wx"] = _card(offset + R * D * 4 * H, seed=3)[offset:].view(R, D, 4, H)
+    h, c = lstm_ops.lstm_cell_fused(**a)
+    (args,) = recorded[lstm_ops].calls
+    assert args[:8] == (*(a[k].data_ptr() for k in ("x", "h", "c", "wx", "wh",
+                                                    "b")),
+                        h.data_ptr(), c.data_ptr())
+    assert args[8:12] == (R, B, D, H)
+    p = lstm_ops.plan_lstm(R, B, D, H, 132, vec16)
+    assert p.vec16 is vec16
+    assert args[14:] == tuple(p)
+
+
+# ---------------------------------------------------------------------------
+# plan_conv
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("C,esize", [(1794, 2), (130, 2), (130, 4), (6, 4)])
+def test_plan_conv_scalar_where_c_is_not_a_vector_multiple(C, esize):
+    p = conv_ops.plan_conv(1, 64, C, esize, True)
+    assert not p.vector and p.width == 1
+
+
+@pytest.mark.parametrize("dtype,offset,vector", [
+    (torch.bfloat16, 1, False), (torch.bfloat16, 3, False),
+    (torch.bfloat16, 8, True), (torch.float32, 1, False),
+    (torch.float32, 4, True)])
+def test_plan_conv_scalar_for_a_view_off_16_byte_alignment(dtype, offset,
+                                                           vector):
+    """A contiguous view at a storage offset (the model's ``.contiguous()``
+    of a slice that already is contiguous) is legal input; it takes the
+    scalar path unless its offset keeps 16-byte alignment."""
+    B, S, C = 1, 128, 1792
+    base = torch.zeros(offset + B * S * C, dtype=dtype)
+    x = base[offset:].view(B, S, C)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    p = conv_ops.plan_conv(B, S, C, x.element_size(), x.data_ptr() % 16 == 0)
+    assert p.vector is vector
+    assert p.width == (16 // x.element_size() if vector else 1)
+
+
+@pytest.mark.parametrize("B,C", [(1, 1792), (4, 1792), (64, 8192)])
+def test_plan_conv_runs_one_step_a_thread_at_decode(B, C):
+    p = conv_ops.plan_conv(B, 1, C, 2, True)
+    assert p.run == 1 and p.runs == 1
+    # a launch short of one block of channel vectors an SM goes one
+    # channel a thread
+    assert p.vector is (B * C // 8 >= 132 * conv_ops.THREADS)
+
+
+@pytest.mark.parametrize("B,S,C,vector", [
+    (4, 1, 1792, False), (4, 4, 2560, False), (1, 128, 1792, True),
+    (1, 512, 1792, True), (1, 75, 1792, False), (1, 76, 1792, True)])
+def test_plan_conv_vectors_only_launches_that_fill_the_card(B, S, C, vector):
+    assert conv_ops.plan_conv(B, S, C, 2, True).vector is vector
+
+
+@pytest.mark.parametrize("B,S,C,esize,aligned", [
+    (1, 512, 1792, 2, True),           # mamba2-130m prefill layer
+    (1, 2560, 2560, 2, True),          # recurrentgemma-2b prefill layer
+    (4, 1, 1792, 2, True),             # decode step
+    (2, 3000, 200, 2, True),           # long S
+    (3, 2, 130, 4, True),              # S < K-1, scalar
+    (2, 37, 1794, 2, False),           # unaligned
+    (8, 4096, 2048, 2, True),          # long runs
+])
+def test_plan_conv_grid_covers_every_item_once(B, S, C, esize, aligned):
+    p = conv_ops.plan_conv(B, S, C, esize, aligned)
+    cols = C // p.width
+    assert p.runs * p.run >= S > (p.runs - 1) * p.run
+    i = np.arange(p.blocks * conv_ops.THREADS, dtype=np.int64)
+    i = i[i < B * p.runs * cols]
+    assert len(i) > (p.blocks - 1) * conv_ops.THREADS   # the last block is used
+    cv, rest = i % cols, i // cols
+    run, b = rest % p.runs, rest // p.runs
+    count = np.zeros((B, S, cols), np.int32)
+    for step in range(p.run):
+        t = run * p.run + step
+        ok = t < S
+        np.add.at(count, (b[ok], t[ok], cv[ok]), 1)
+    assert (count == 1).all()
+    # one thread a (b, channel group) ends its run at step S-1 and writes
+    # the new tail
+    last = (run + 1) * p.run >= S
+    tails = np.zeros((B, cols), np.int32)
+    np.add.at(tails, (b[last], cv[last]), 1)
+    assert (tails == 1).all()
+
+
+def test_plan_conv_lengthens_runs_only_past_two_waves():
+    small = conv_ops.plan_conv(1, 512, 1792, 2, True)
+    big = conv_ops.plan_conv(1, 2560, 2560, 2, True)
+    assert small.run == 1
+    assert big.run > 1
+    items = 1 * -(-2560 // big.run) * (2560 // 8)
+    assert items >= 2 * 132 * conv_ops.RESIDENT
+
+
+# ---------------------------------------------------------------------------
+# plan_lstm
+# ---------------------------------------------------------------------------
+LSTM_SHAPES = [(23, 1, 128, 64), (23, 1, 64, 64), (1, 23, 128, 64),
+               (3, 5, 48, 160), (2, 3, 4000, 64), (4, 2, 7, 50), (5, 3, 1, 64),
+               (1, 1, 12 * 1024 - 64, 64), (2, 9, 6000, 6000), (1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("R,B,D,H", LSTM_SHAPES)
+def test_plan_lstm_covers_every_unit_and_row_once(R, B, D, H):
+    p = lstm_ops.plan_lstm(R, B, D, H)
+    K = D + H
+    btiles, jtiles = -(-B // p.bt), -(-H // p.ju)
+    assert p.blocks == R * btiles * jtiles
+    blk = np.arange(p.blocks)
+    jt, rest = blk % jtiles, blk // jtiles
+    bti, r = rest % btiles, rest // btiles
+    count = np.zeros((R, B, H), np.int32)
+    for e in range(p.bt):
+        for u in range(p.ju):
+            b, j = bti * p.bt + e, jt * p.ju + u
+            ok = (b < B) & (j < H)
+            np.add.at(count, (r[ok], b[ok], j[ok]), 1)
+    assert (count == 1).all()
+    # the stages, and within each the warps' slices, take every row once
+    slices = lstm_ops.THREADS // (4 * p.ju)
+    rows = np.zeros(K, np.int32)
+    for k0 in range(0, K, p.rows):
+        n = min(p.rows, K - k0)
+        for sl in range(slices):
+            rows[k0 + np.arange(sl, n, slices)] += 1
+    assert (rows == 1).all()
+    assert p.stages == (1 if p.rows >= K else 2)
+
+
+def test_plan_lstm_fills_the_card_at_the_forecast_shape():
+    for D in (128, 64):
+        p = lstm_ops.plan_lstm(23, 1, D, 64)
+        assert p.blocks >= 132 and p.ju == 8 and p.bt == 1 and p.stages == 1
+        assert p.vec16
+    assert lstm_ops.plan_lstm(1, 23, 128, 64).blocks >= 132
+    assert not lstm_ops.plan_lstm(4, 2, 7, 50).vec16        # H % 4 != 0
+    assert not lstm_ops.plan_lstm(23, 1, 128, 64, aligned=False).vec16
+
+
+@pytest.mark.parametrize("R,B,H", [(1, 1, 64), (23, 1, 64), (2, 64, 4),
+                                   (1, 8, 1024), (3, 5, 160)])
+@pytest.mark.parametrize("K", [2, 192, 4064, 8192, 12 * 1024])
+def test_plan_lstm_fits_shared_memory_up_to_12k_rows(R, B, H, K):
+    D = max(K - H, 1)
+    p = lstm_ops.plan_lstm(R, B, D, H)
+    assert p.smem <= SMEM_LIMIT
+    assert p.stages * p.rows * 16 * p.ju <= lstm_ops.RING_BYTES

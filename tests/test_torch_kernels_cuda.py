@@ -53,7 +53,10 @@ def test_pixcon_kernel_matches_plain(dev, R, B, T, P, normalize, temperature):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,B,D,H", [(23, 1, 128, 64), (23, 1, 64, 64),
-                                     (3, 5, 48, 160)])
+                                     (3, 5, 48, 160), (1, 23, 128, 64),
+                                     (4, 2, 7, 50),     # H not a multiple of 8
+                                     (5, 3, 1, 64),     # D = 1
+                                     (2, 3, 4000, 64)])  # K through the ring
 def test_lstm_cell_kernel_matches_plain(dev, R, B, D, H):
     from repro_torch.kernels.lstm_cell import ops
     from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
@@ -238,6 +241,101 @@ def test_conv1d_kernel_matches_plain(dev, dtype, atol, B, S, C, K, act, tail):
     ref_y, ref_tail = causal_conv1d_ref(**a, activation=act)
     torch.testing.assert_close(y.float(), ref_y.float(), atol=atol, rtol=0)
     torch.testing.assert_close(new_tail, ref_tail, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("case,B,S,C,K,act,tail,offset", [
+    ("odd_offset", 2, 7, 1792, 4, "silu", True, 1),   # a view off alignment
+    ("odd_offset_wide", 1, 128, 1792, 4, "silu", True, 1),  # ... vector-sized
+    ("c1794", 1, 64, 1794, 4, "silu", True, 0),       # C not a multiple of 8
+    ("c130", 2, 33, 130, 4, "none", True, 0),
+    ("s1_tail", 3, 1, 256, 4, "silu", True, 0),       # S below K-1
+    ("s2_tail", 3, 2, 256, 4, "none", True, 0),
+    ("s3000", 1, 3000, 1792, 4, "silu", False, 0),
+    ("k2", 2, 19, 512, 2, "none", True, 0),
+    ("k5", 2, 19, 512, 5, "silu", True, 0),           # K re-read, not windowed
+    ("k1", 2, 9, 64, 1, "silu", False, 0),            # no tail at all
+])
+def test_conv1d_kernel_edges(dev, monkeypatch, dtype, atol, case, B, S, C, K,
+                             act, tail, offset):
+    """The vector and scalar paths, the windowed and re-read K, and the
+    new tail the kernel writes (bit-equal to the plain version's). An
+    input off 16-byte alignment is launched on the scalar path."""
+    from repro_torch.kernels.conv1d import ops
+    from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
+    plans, real = [], ops.plan_conv
+
+    def plan_conv(*args):
+        plans.append(real(*args))
+        return plans[-1]
+    monkeypatch.setattr(ops, "plan_conv", plan_conv)
+    g = torch.Generator().manual_seed(B * S + C + K + offset)
+    td = getattr(torch, dtype)
+    base = _rn(g, dev, offset + B * S * C).to(td)
+    x = base[offset:].view(B, S, C)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    a = dict(x=x, w=_rn(g, dev, K, C, s=0.5).to(td),
+             b=_rn(g, dev, C, s=0.1).to(td),
+             tail=_rn(g, dev, B, K - 1, C).to(td) if tail else None)
+    before = ops.causal_conv1d.launches
+    y, new_tail = ops.causal_conv1d(**a, activation=act)
+    torch.cuda.synchronize()
+    assert ops.causal_conv1d.launches == before + 1
+    if offset * x.element_size() % 16:
+        assert not plans[-1].vector
+    ref_y, ref_tail = causal_conv1d_ref(**a, activation=act)
+    torch.testing.assert_close(y.float(), ref_y.float(), atol=atol, rtol=0)
+    assert new_tail.dtype == td and tuple(new_tail.shape) == (B, K - 1, C)
+    torch.testing.assert_close(new_tail, ref_tail, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_conv1d_kernel_refuses_a_vector_plan_off_alignment(dev, monkeypatch):
+    """The launch function checks the plan it is given: 16-byte vectors on
+    an input off 16-byte alignment raise instead of reading misaligned."""
+    from repro_torch.kernels.conv1d import ops
+    B, S, C = 1, 128, 1792
+    vector = ops.plan_conv(B, S, C, 2, True, 132)
+    assert vector.vector
+    monkeypatch.setattr(ops, "plan_conv", lambda *args: vector)
+    g = torch.Generator().manual_seed(5)
+    x = _rn(g, dev, 1 + B * S * C).bfloat16()[1:].view(B, S, C)
+    w = _rn(g, dev, 4, C).bfloat16()
+    b = _rn(g, dev, C).bfloat16()
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        ops.causal_conv1d(x, w, b, activation="silu")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_wrappers_replay_in_a_cuda_graph(dev):
+    """Both wrappers captured into one CUDA graph (as the forecast is):
+    the replay gives the eager call's outputs, to the bit."""
+    from repro_torch.kernels.conv1d.ops import causal_conv1d
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell_fused
+    g = torch.Generator().manual_seed(7)
+    conv = dict(x=_rn(g, dev, 4, 1, 1792).bfloat16(),
+                w=_rn(g, dev, 4, 1792, s=0.5).bfloat16(),
+                b=_rn(g, dev, 1792, s=0.1).bfloat16(),
+                tail=_rn(g, dev, 4, 3, 1792).bfloat16())
+    lstm = dict(x=_rn(g, dev, 23, 1, 128), h=_rn(g, dev, 23, 1, 64),
+                c=_rn(g, dev, 23, 1, 64),
+                wx=_rn(g, dev, 23, 128, 4, 64, s=128 ** -0.5),
+                wh=_rn(g, dev, 23, 64, 4, 64, s=0.125),
+                b=_rn(g, dev, 23, 4, 64, s=0.1))
+    eager = (*causal_conv1d(**conv, activation="silu"), *lstm_cell_fused(**lstm))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = (*causal_conv1d(**conv, activation="silu"),
+                *lstm_cell_fused(**lstm))
+    for o in outs:
+        o.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    for o, e in zip(outs, eager):
+        torch.testing.assert_close(o, e, atol=0, rtol=0)
 
 
 def ssd_inputs(g, dev, dtype, B, nc, Q, H, N, P):
