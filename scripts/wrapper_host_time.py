@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the host time of a conv1d and an LSTM-step wrapper call goes, on
-one NVIDIA GPU.
+"""Where the host time of a conv1d, LSTM-step, Pix-Con and SSD-chunk
+wrapper call goes, on one NVIDIA GPU.
 
     python3 scripts/wrapper_host_time.py [SRC]
 
 Times the wrappers of the port found in SRC, a ``src`` directory (default:
 this checkout's), at mamba2-130m's 4-slot decode step (``causal_conv1d``,
-bf16, B=4, S=1, C=1,792, K=4, SiLU, with a tail) and at the Dom-ST
+bf16, B=4, S=1, C=1,792, K=4, SiLU, with a tail), at the Dom-ST
 forecast's first LSTM layer (``lstm_cell_fused``, R=23, B=1, D=128,
-H=64). One call runs with each piece of the wrapper's host path recorded,
+H=64), at the forecast's Pix-Con gate (``pixcon_gate``, R=23, B=1, T=30,
+P=64, F=4, Hp=32) and at mamba2-130m's 512-token prefill layer
+(``ssd_chunk_fused``, bf16, B=1, nc=2, Q=256, H=24, N=128, P=64). One
+call runs with each piece of the wrapper's host path recorded,
 found by the name the wrapper calls it through: the input checks, the
 output allocations, getting the current stream, the launch plan, the new
 tail (a ``torch.cat`` where the kernel does not write it) and the call
@@ -56,7 +59,8 @@ def host_breakdown(ops, call, host_us) -> dict:
              "alloc": [(torch, "empty_like"), (torch, "empty"),
                        (torch.Tensor, "new_empty")],
              "stream": [(torch.cuda, "current_stream"), (ops, "stream_handle")],
-             "plan": [(ops, "plan_conv"), (ops, "plan_lstm"), (ops, "sm_count")],
+             "plan": [(ops, "plan_conv"), (ops, "plan_lstm"), (ops, "plan_ssd"),
+                      (ops, "sm_count")],
              "new_tail": [(ops, "new_tail")]}
     seen = {label: [] for label in names}
     launches = []
@@ -108,9 +112,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))              # chip_smoke's timing helpers
     sys.path.insert(0, str(src))
-    from chip_smoke import conv_args, host_us, lstm_inputs
+    from chip_smoke import (conv_args, host_us, lstm_inputs, pixcon_inputs,
+                            ssd_inputs)
     from repro_torch.kernels.conv1d import ops as conv_ops
     from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.kernels.pixcon import ops as pixcon_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 
     def timed(fn):
         return host_us(fn, calls=CALLS)
@@ -118,12 +125,18 @@ def main() -> int:
     g = torch.Generator().manual_seed(99)
     conv = conv_args(g, dev, torch.bfloat16, 4, 1, 1792, 4, True)
     lstm = lstm_inputs(g, dev, 23, 1, 128, 64)
+    pix = pixcon_inputs(g, dev, 23, 1, 30, 64)
+    ssd = ssd_inputs(g, dev, torch.bfloat16, 1, 2, 256, 24, 128, 64)
     out = {"src": str(src), "card": torch.cuda.get_device_name(0),
            "conv1d_mamba2_decode": host_breakdown(
                conv_ops, lambda: conv_ops.causal_conv1d(**conv, activation="silu"),
                timed),
            "lstm_cell_layer0": host_breakdown(
-               lstm_ops, lambda: lstm_ops.lstm_cell_fused(**lstm), timed)}
+               lstm_ops, lambda: lstm_ops.lstm_cell_fused(**lstm), timed),
+           "pixcon_forecast": host_breakdown(
+               pixcon_ops, lambda: pixcon_ops.pixcon_gate(**pix), timed),
+           "ssd_chunk_mamba2_prefill": host_breakdown(
+               ssd_ops, lambda: ssd_ops.ssd_chunk_fused(**ssd), timed)}
     print(json.dumps(out))
     return 0
 

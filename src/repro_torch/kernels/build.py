@@ -30,9 +30,11 @@ SOURCES = ("pixcon", "lstm_cell", "paged_attn", "conv1d", "ssd_chunk",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Libraries whose calls keep the GIL rather than release and take it
-# again: launch functions that return at once and run thousands of times
-# a forward (the LSTM step, the conv1d of every recurrent layer).
-KEEP_GIL = ("conv1d", "lstm_cell")
+# again: launch functions that return at once, on the paths where a
+# wrapper's host time is most of a call (the LSTM step and the conv1d of
+# every recurrent layer, run thousands of times a forward; Pix-Con, once
+# a forecast day; the SSD chunk, once a Mamba-2 prefill layer).
+KEEP_GIL = ("conv1d", "lstm_cell", "pixcon", "ssd_chunk")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

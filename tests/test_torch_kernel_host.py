@@ -1,7 +1,8 @@
-"""The host side of the conv1d and LSTM-step wrappers, on the CPU: their
-input checks, the launch plans they pass to ``csrc/conv1d.cu`` and
-``csrc/lstm_cell.cu`` (``plan_conv``, ``plan_lstm``), and the arguments
-they pack for a launch. No card is needed: a CPU tensor that reports a
+"""The host side of the conv1d, LSTM-step, Pix-Con and SSD-chunk
+wrappers, on the CPU: their input checks, the launch plans they pass to
+``csrc/conv1d.cu``, ``csrc/lstm_cell.cu`` and ``csrc/ssd_chunk.cu``
+(``plan_conv``, ``plan_lstm``, ``plan_ssd``), and the arguments they pack
+for a launch. No card is needed: a CPU tensor that reports a
 CUDA device takes the wrapper down its CUDA path, where the checks run and
 the kernel library, absent here, raises (or a stand-in records the packed
 arguments). Nothing of the reference package is imported."""
@@ -16,6 +17,8 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.common import check_activations, check_inputs  # noqa: E402
 from repro_torch.kernels.conv1d import ops as conv_ops  # noqa: E402
 from repro_torch.kernels.lstm_cell import ops as lstm_ops  # noqa: E402
+from repro_torch.kernels.pixcon import ops as pixcon_ops  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops  # noqa: E402
 
 SMEM_LIMIT = 232448          # bytes of shared memory a block can use on an H100
 
@@ -148,18 +151,124 @@ def test_lstm_inputs_that_pass_reach_the_kernel(no_library):
 
 
 # ---------------------------------------------------------------------------
+# Pix-Con: each fault raises what ``check_inputs`` raises for it
+# ---------------------------------------------------------------------------
+def _pixcon_inputs(R=2, B=3, T=5, P=8, F=4, Hp=6):
+    return dict(x=_card(R, B, T, P), feats=_card(R, B, P, F, seed=1),
+                w1=_card(R, F, Hp, seed=2), b1=_card(R, Hp, seed=3),
+                w2=_card(R, Hp, seed=4), b2=_card(R, 1, seed=5))
+
+
+PIXCON_FAULTS = {
+    "x_bf16": (TypeError, lambda a: {**a, "x": a["x"].bfloat16()}),
+    "w1_float64": (TypeError, lambda a: {**a, "w1": a["w1"].double()}),
+    "x_not_contiguous": (ValueError, lambda a: {
+        **a, "x": a["x"].transpose(2, 3).contiguous().transpose(2, 3)}),
+    "feats_not_contiguous": (ValueError, lambda a: {
+        **a, "feats": a["feats"].transpose(2, 3).contiguous()
+        .transpose(2, 3)}),
+    "feats_wrong_pixels": (ValueError, lambda a: {**a, "feats": _card(2, 3, 7, 4)}),
+    "w1_wrong_replicas": (ValueError, lambda a: {**a, "w1": _card(3, 4, 6)}),
+    "b1_wrong_shape": (ValueError, lambda a: {**a, "b1": _card(2, 5)}),
+    "w2_wrong_shape": (ValueError, lambda a: {**a, "w2": _card(2, 7)}),
+    "b2_wrong_shape": (ValueError, lambda a: {**a, "b2": _card(2)}),
+    "b2_on_cpu": (ValueError, lambda a: {**a, "b2": torch.randn(2, 1)}),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(PIXCON_FAULTS))
+def test_pixcon_checks_raise_as_before(no_library, fault):
+    kind, make = PIXCON_FAULTS[fault]
+    a = make(_pixcon_inputs())
+    got = _raised(lambda: pixcon_ops.pixcon_gate(**a, temperature=2.0))
+    R, B, _, P = a["x"].shape
+    F, Hp = a["w1"].shape[1:]
+    want = _raised(lambda: check_inputs(
+        "pixcon_gate", a, dict(feats=(R, B, P, F), w1=(R, F, Hp),
+                               b1=(R, Hp), w2=(R, Hp), b2=(R, 1))))
+    assert want is not None and want[0] is kind
+    assert got == want
+
+
+def test_pixcon_inputs_that_pass_reach_the_kernel(no_library):
+    before = pixcon_ops.pixcon_gate.launches
+    with pytest.raises(RuntimeError, match="no CUDA kernel library"):
+        pixcon_ops.pixcon_gate(**_pixcon_inputs())
+    assert pixcon_ops.pixcon_gate.launches == before
+    with pytest.raises(ValueError, match="must be"):
+        pixcon_ops.pixcon_gate(**{**_pixcon_inputs(), "x": _card(2, 3, 8)})
+    with pytest.raises(ValueError, match="exceeds"):
+        pixcon_ops.pixcon_gate(**_pixcon_inputs(R=1, B=1, T=1, P=8193))
+
+
+# ---------------------------------------------------------------------------
+# The SSD chunk: each fault raises what ``check_activations`` raises for it
+# ---------------------------------------------------------------------------
+def _ssd_inputs(B=1, nc=2, Q=5, H=3, N=16, P=8, dtype=torch.float32):
+    return dict(Cc=_card(B, nc, Q, H, N, dtype=dtype),
+                Bc=_card(B, nc, Q, H, N, dtype=dtype, seed=1),
+                xdt=_card(B, nc, Q, H, P, dtype=dtype, seed=2),
+                dA_cs=_card(B, nc, H, Q, seed=3))
+
+
+SSD_FAULTS = {
+    "xdt_float16": (TypeError, lambda a: {**a, "xdt": a["xdt"].half()}),
+    "cc_bf16_xdt_fp32": (TypeError, lambda a: {**a, "Cc": a["Cc"].bfloat16()}),
+    "da_bf16": (TypeError, lambda a: {**a, "dA_cs": a["dA_cs"].bfloat16()}),
+    "bc_not_contiguous": (ValueError, lambda a: {
+        **a, "Bc": a["Bc"].transpose(3, 4).contiguous().transpose(3, 4)}),
+    "da_not_contiguous": (ValueError, lambda a: {
+        **a, "dA_cs": a["dA_cs"].transpose(2, 3).contiguous()
+        .transpose(2, 3)}),
+    "bc_wrong_width": (ValueError, lambda a: {**a, "Bc": _card(1, 2, 5, 3, 12)}),
+    "xdt_wrong_rows": (ValueError, lambda a: {**a, "xdt": _card(1, 2, 4, 3, 8)}),
+    "da_wrong_shape": (ValueError, lambda a: {**a, "dA_cs": _card(1, 2, 3, 6)}),
+    "bc_on_cpu": (ValueError, lambda a: {**a, "Bc": torch.randn(1, 2, 5, 3, 16)}),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(SSD_FAULTS))
+def test_ssd_chunk_checks_raise_as_before(no_library, fault):
+    kind, make = SSD_FAULTS[fault]
+    a = make(_ssd_inputs())
+    got = _raised(lambda: ssd_ops.ssd_chunk_fused(**a))
+    B, nc, Q, H, N = a["Cc"].shape
+    P = a["xdt"].shape[4]
+    want = _raised(lambda: check_activations(
+        "ssd_chunk_fused", dict(xdt=a["xdt"], Cc=a["Cc"], Bc=a["Bc"],
+                                dA_cs=a["dA_cs"]),
+        dict(Cc=(B, nc, Q, H, N), Bc=(B, nc, Q, H, N), xdt=(B, nc, Q, H, P),
+             dA_cs=(B, nc, H, Q)), fp32=("dA_cs",)))
+    assert want is not None and want[0] is kind
+    assert got == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_inputs_that_pass_reach_the_kernel(no_library, dtype):
+    before = ssd_ops.ssd_chunk_fused.launches
+    with pytest.raises(RuntimeError, match="no CUDA kernel library"):
+        ssd_ops.ssd_chunk_fused(**_ssd_inputs(dtype=dtype))
+    assert ssd_ops.ssd_chunk_fused.launches == before
+    with pytest.raises(ValueError, match="above"):
+        ssd_ops.ssd_chunk_fused(**_ssd_inputs(P=65, dtype=dtype))
+    with pytest.raises(ValueError, match="must be"):
+        a = _ssd_inputs(dtype=dtype)
+        ssd_ops.ssd_chunk_fused(**{**a, "xdt": a["xdt"][0]})
+
+
+# ---------------------------------------------------------------------------
 # What a wrapper packs for its launch: the tensors, the shape and the plan
 # ---------------------------------------------------------------------------
 class _Library:
-    """Stands in for a kernel library: records the int64 fields of each
-    launch's packed argument and returns success."""
+    """Stands in for a kernel library: records the fields of each launch's
+    packed argument (``fmt``, a ``struct`` format) and returns success."""
 
-    def __init__(self, fields):
-        self.fields, self.calls = fields, []
+    def __init__(self, fmt):
+        self.fmt, self.calls = fmt, []
 
-    def __getattr__(self, name):        # conv1d_launch, lstm_cell_launch
+    def __getattr__(self, name):        # conv1d_launch, lstm_cell_launch, ...
         def launch(packed):
-            self.calls.append(struct.unpack(f"{self.fields}q", packed))
+            self.calls.append(struct.unpack(self.fmt, packed))
             return 0
         return launch
 
@@ -168,12 +277,15 @@ class _Library:
 def recorded(monkeypatch):
     """The wrappers launch into a ``_Library``; their launch counts are put
     back afterwards (other tests read them from 0)."""
-    libs = {conv_ops: _Library(17), lstm_ops: _Library(21)}
-    for fn in (conv_ops.causal_conv1d, lstm_ops.lstm_cell_fused):
+    libs = {conv_ops: _Library("17q"), lstm_ops: _Library("21q"),
+            pixcon_ops: _Library("=18qf"), ssd_ops: _Library("21q")}
+    for fn in (conv_ops.causal_conv1d, lstm_ops.lstm_cell_fused,
+               pixcon_ops.pixcon_gate, ssd_ops.ssd_chunk_fused):
         monkeypatch.setattr(fn, "launches", fn.launches)
     for ops, lib in libs.items():
         monkeypatch.setattr(ops, "_lib", lambda lib=lib: lib)
-        monkeypatch.setattr(ops, "sm_count", lambda dev: 132)
+        if hasattr(ops, "sm_count"):
+            monkeypatch.setattr(ops, "sm_count", lambda dev: 132)
         monkeypatch.setattr(ops, "stream_handle", lambda dev: 0)
     return libs
 
@@ -221,6 +333,125 @@ def test_lstm_launch_takes_its_plan(recorded, offset, vec16):
     p = lstm_ops.plan_lstm(R, B, D, H, 132, vec16)
     assert p.vec16 is vec16
     assert args[14:] == tuple(p)
+
+
+@pytest.mark.parametrize("offset,vec", [(0, True), (1, False)])
+@pytest.mark.parametrize("normalize,temperature", [(True, 1.0), (False, 2.5),
+                                                   (True, 0.3)])
+def test_pixcon_launch_packs_its_fields(recorded, offset, vec, normalize,
+                                        temperature):
+    """The forecast's shape: pointers, shape, flags, and 1 / temperature as
+    a float32 field (not cut to an integer); x viewed at a storage offset
+    off 16-byte alignment takes the scalar write path."""
+    R, B, T, P, F, Hp = 23, 1, 30, 64, 4, 32
+    a = _pixcon_inputs(R, B, T, P, F, Hp)
+    a["x"] = _card(offset + R * B * T * P)[offset:].view(R, B, T, P)
+    before = pixcon_ops.pixcon_gate.launches
+    out, w = pixcon_ops.pixcon_gate(**a, temperature=temperature,
+                                    normalize=normalize)
+    assert pixcon_ops.pixcon_gate.launches == before + 1
+    assert out.shape == (R, B, T, P) and w.shape == (R, B, P)
+    (f,) = recorded[pixcon_ops].calls
+    assert f[:8] == (*(a[k].data_ptr() for k in ("x", "feats", "w1", "b1",
+                                                 "w2", "b2")),
+                     out.data_ptr(), w.data_ptr())
+    assert f[8:14] == (R, B, T, P, F, Hp)
+    assert f[14:18] == (normalize, vec, 0, 0)
+    assert f[18] == np.float32(1.0 / temperature)
+
+
+def test_pixcon_launch_takes_the_scalar_path_off_four_pixels(recorded):
+    pixcon_ops.pixcon_gate(**_pixcon_inputs(P=10))
+    (f,) = recorded[pixcon_ops].calls
+    assert f[11] == 10 and f[15] == 0
+
+
+@pytest.mark.parametrize("dtype,offset", [
+    (torch.bfloat16, 0), (torch.bfloat16, 1), (torch.float32, 0),
+    (torch.float32, 2)])
+def test_ssd_chunk_launch_packs_its_fields(recorded, dtype, offset):
+    """mamba2-130m's prefill layer: pointers, shape, dtype flag and the
+    plan; xdt viewed at a storage offset off 16-byte alignment takes
+    element loads."""
+    B, nc, Q, H, N, P = 1, 2, 256, 24, 128, 64
+    a = _ssd_inputs(B, nc, Q, H, N, P, dtype=dtype)
+    n = B * nc * Q * H * P
+    a["xdt"] = _card(offset + n, dtype=dtype)[offset:].view(B, nc, Q, H, P)
+    before = ssd_ops.ssd_chunk_fused.launches
+    y, st = ssd_ops.ssd_chunk_fused(**a)
+    assert ssd_ops.ssd_chunk_fused.launches == before + 1
+    assert y.dtype == dtype and y.shape == (B, nc, Q, H, P)
+    assert st.dtype == torch.float32 and st.shape == (B, nc, H, P, N)
+    (f,) = recorded[ssd_ops].calls
+    assert f[:6] == (*(a[k].data_ptr() for k in ("Cc", "Bc", "xdt", "dA_cs")),
+                     y.data_ptr(), st.data_ptr())
+    bf16 = dtype is torch.bfloat16
+    assert f[6:14] == (B * nc, Q, H, N, P, int(bf16), 0, 0)
+    p = ssd_ops.plan_ssd(B * nc, Q, H, N, P, 2 if bf16 else 4, offset == 0)
+    assert f[14:] == tuple(p)
+    assert p.vec is (offset == 0)
+    assert p.ksteps == (8 if bf16 else 0)
+    assert p.qtiles == (8 if bf16 else 4) and p.state_first is bf16
+
+
+# ---------------------------------------------------------------------------
+# plan_ssd
+# ---------------------------------------------------------------------------
+SSD_SHAPES = [(2, 256, 24, 128, 64), (1, 5, 24, 128, 64), (2, 200, 3, 128, 64),
+              (3, 8, 4, 16, 32), (4, 1, 3, 20, 24), (4, 129, 3, 16, 24),
+              (20, 256, 24, 128, 64), (1, 65, 2, 256, 64), (2, 17, 1, 1, 1),
+              (1, 300, 2, 200, 40)]
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+@pytest.mark.parametrize("BN,Q,H,N,P", SSD_SHAPES)
+def test_plan_ssd_covers_every_tile_and_slice_once(BN, Q, H, N, P, esize):
+    """Decoding each block as the kernel does (``block_work``) gives every
+    (query tile, head, batch*chunk) one y block, the tiles with the most
+    key tiles first, and every (p, n) of every (head, batch*chunk) one
+    state block."""
+    p = ssd_ops.plan_ssd(BN, Q, H, N, P, esize, True)
+    assert p.y_blocks == p.qtiles * H * BN
+    tile = ssd_ops.TILE[esize]
+    assert p.qtiles * tile >= Q > (p.qtiles - 1) * tile
+    ns = p.blocks - p.y_blocks
+    i = np.arange(p.blocks, dtype=np.int64)
+    b = np.where(i < ns, i + p.y_blocks, i - ns) if p.state_first else i
+    if p.state_first:                      # the state blocks take 0..ns-1
+        assert (b[:ns] >= p.y_blocks).all()
+    yb, sb = b[b < p.y_blocks], b[b >= p.y_blocks] - p.y_blocks
+    per = BN * H
+    tile = p.qtiles - 1 - yb // per
+    h, bc = (yb % per) % H, (yb % per) // H
+    ycount = np.zeros((p.qtiles, H, BN), np.int32)
+    np.add.at(ycount, (tile, h, bc), 1)
+    assert (ycount == 1).all()
+    assert (np.diff(tile) <= 0).all()              # heaviest tiles first
+    sl_w, n_sl = ssd_ops.SLICE, -(-N // ssd_ops.SLICE)
+    sl, rest = sb % p.slices, sb // p.slices
+    h, bc = rest % H, rest // H
+    scount = np.zeros((BN, H, P, N), np.int32)
+    for k in range(len(sb)):
+        p0, n0 = (sl[k] // n_sl) * sl_w, (sl[k] % n_sl) * sl_w
+        scount[bc[k], h[k], p0:p0 + sl_w, n0:n0 + sl_w] += 1
+    assert (scount == 1).all()
+
+
+@pytest.mark.parametrize("N,ksteps", [(1, 4), (16, 4), (20, 4), (64, 4),
+                                      (65, 8), (128, 8), (129, 16), (256, 16)])
+def test_plan_ssd_takes_the_smallest_instantiation_that_holds_n(N, ksteps):
+    assert ssd_ops.plan_ssd(1, 64, 2, N, 64, 2, True).ksteps == ksteps
+    assert ssd_ops.plan_ssd(1, 64, 2, N, 64, 4, True).ksteps == 0
+
+
+@pytest.mark.parametrize("esize,N,P,aligned,vec", [
+    (2, 128, 64, True, True), (2, 20, 64, True, False),
+    (2, 128, 24, True, True), (2, 128, 12, True, False),
+    (2, 128, 64, False, False), (4, 20, 24, True, True),
+    (4, 18, 24, True, False), (4, 128, 64, False, False)])
+def test_plan_ssd_copies_16_bytes_only_where_rows_stay_aligned(esize, N, P,
+                                                               aligned, vec):
+    assert ssd_ops.plan_ssd(2, 100, 3, N, P, esize, aligned).vec is vec
 
 
 # ---------------------------------------------------------------------------

@@ -10,13 +10,21 @@ fp32, atol 1e-5: the kernels sum in another order than PyTorch, except
 the Pix-Con weights, which must agree to the bit (the partitioner ranks
 pixels by them). Paged attention in bf16: atol 2e-2, one bf16 ulp at
 |out| < 4, since a score summed in another order can round through bf16
-to the neighbouring value.
+to the neighbouring value. The SSD chunk's bf16 y: one bf16 ulp at every
+magnitude (``BF16_ULP``), since its outputs reach |y| ~ 140.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 ATOL = 1e-5
+# One bf16 ulp at every magnitude: bf16 keeps 8 significant bits, so an
+# ulp is 2^-7 of the lower edge of its binade (between 2^-8 and 2^-7 of
+# |y|); below |y| = 4 the 2e-2 floor holds, as for the other kernels. A
+# tensor-core product sums in another order than the plain version's, so
+# a y that lies near a bf16 rounding boundary lands on the neighbouring
+# value.
+BF16_ULP = dict(atol=2e-2, rtol=2 ** -7)
 
 
 @pytest.fixture
@@ -49,6 +57,43 @@ def test_pixcon_kernel_matches_plain(dev, R, B, T, P, normalize, temperature):
                                      normalize=normalize)
     torch.testing.assert_close(out, ref_out, atol=ATOL, rtol=0)
     torch.testing.assert_close(w, ref_w, atol=0, rtol=0)
+
+
+def _near_tie_inputs(g, dev, R, B, T, P):
+    """Pix-Con inputs whose pixels come in pairs: the second of a pair has
+    the first's features moved by one float32 ulp in one feature, so the
+    two gate weights lie a few ulp apart (or tie)."""
+    x = _rn(g, dev, R, B, T, P).abs()
+    feats = _rn(g, dev, R, B, P, 4)
+    f = feats[:, :, 0::2].clone()
+    moved = f.clone()
+    k = torch.arange(moved.shape[2], device=dev) % 4
+    col = moved.gather(-1, k.view(1, 1, -1, 1).expand(R, B, -1, 1))
+    moved.scatter_(-1, k.view(1, 1, -1, 1).expand(R, B, -1, 1),
+                   torch.nextafter(col, torch.full_like(col, float("inf"))))
+    feats[:, :, 1::2] = moved[:, :, :P // 2]
+    return dict(x=x, feats=feats.contiguous(), w1=_rn(g, dev, R, 4, 32, s=0.5),
+                b1=_rn(g, dev, R, 32, s=0.1), w2=_rn(g, dev, R, 32, s=0.2),
+                b2=_rn(g, dev, R, 1, s=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,B,T,P", [(23, 1, 30, 64), (3, 2, 7, 50)])
+def test_pixcon_near_ties_bit_equal(dev, R, B, T, P):
+    """Pixels whose features differ in their last bit: w to the bit and the
+    same ranking as the plain version (the partitioner sorts by w); P=50
+    takes the scalar write path."""
+    from repro_torch.kernels.pixcon import ops
+    from repro_torch.kernels.pixcon.ref import pixcon_gate_ref
+    g = torch.Generator().manual_seed(P)
+    a = _near_tie_inputs(g, dev, R, B, T, P)
+    out, w = ops.pixcon_gate(**a)
+    torch.cuda.synchronize()
+    ref_out, ref_w = pixcon_gate_ref(**a)
+    torch.testing.assert_close(w, ref_w, atol=0, rtol=0)
+    torch.testing.assert_close(out, ref_out, atol=0, rtol=0)
+    assert torch.equal(torch.argsort(-w, dim=-1, stable=True),
+                       torch.argsort(-ref_w, dim=-1, stable=True))
 
 
 @pytest.mark.cuda
@@ -310,10 +355,12 @@ def test_conv1d_kernel_refuses_a_vector_plan_off_alignment(dev, monkeypatch):
 
 @pytest.mark.cuda
 def test_wrappers_replay_in_a_cuda_graph(dev):
-    """Both wrappers captured into one CUDA graph (as the forecast is):
+    """Four wrappers captured into one CUDA graph (as the forecast is):
     the replay gives the eager call's outputs, to the bit."""
     from repro_torch.kernels.conv1d.ops import causal_conv1d
     from repro_torch.kernels.lstm_cell.ops import lstm_cell_fused
+    from repro_torch.kernels.pixcon.ops import pixcon_gate
+    from repro_torch.kernels.ssd_chunk.ops import ssd_chunk_fused
     g = torch.Generator().manual_seed(7)
     conv = dict(x=_rn(g, dev, 4, 1, 1792).bfloat16(),
                 w=_rn(g, dev, 4, 1792, s=0.5).bfloat16(),
@@ -324,12 +371,18 @@ def test_wrappers_replay_in_a_cuda_graph(dev):
                 wx=_rn(g, dev, 23, 128, 4, 64, s=128 ** -0.5),
                 wh=_rn(g, dev, 23, 64, 4, 64, s=0.125),
                 b=_rn(g, dev, 23, 4, 64, s=0.1))
-    eager = (*causal_conv1d(**conv, activation="silu"), *lstm_cell_fused(**lstm))
+    pix = _near_tie_inputs(g, dev, 23, 1, 30, 64)
+    ssd = ssd_inputs(g, dev, torch.bfloat16, 1, 2, 256, 24, 128, 64)
+
+    def calls():
+        return (*causal_conv1d(**conv, activation="silu"),
+                *lstm_cell_fused(**lstm), *pixcon_gate(**pix),
+                *ssd_chunk_fused(**ssd))
+    eager = calls()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        outs = (*causal_conv1d(**conv, activation="silu"),
-                *lstm_cell_fused(**lstm))
+        outs = calls()
     for o in outs:
         o.fill_(float("nan"))
     graph.replay()
@@ -353,26 +406,46 @@ def ssd_inputs(g, dev, dtype, B, nc, Q, H, N, P):
                 dA_cs=torch.cumsum(dA, dim=-1).contiguous())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
-@pytest.mark.parametrize("B,nc,Q,H,N,P", [
-    (1, 2, 256, 24, 128, 64),   # mamba2-130m, a 512-token prefill
-    (1, 1, 5, 24, 128, 64),     # a 5-token prompt: Q = 5
-    (2, 1, 200, 3, 128, 64),    # Q not a multiple of the 64-row tile
-    (1, 3, 8, 4, 16, 32),       # smoke widths
-])
-def test_ssd_chunk_kernel_matches_plain(dev, dtype, atol, B, nc, Q, H, N, P):
+def _check_ssd(dev, dtype, B, nc, Q, H, N, P, seed):
+    """One launch against the plain version: y within 1e-5 in float32 and
+    one bf16 ulp in bf16 (``BF16_ULP``), the float32 state within 1e-5."""
     from repro_torch.kernels.ssd_chunk import ops
     from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
-    g = torch.Generator().manual_seed(Q * H + N + P)
+    g = torch.Generator().manual_seed(seed)
     a = ssd_inputs(g, dev, getattr(torch, dtype), B, nc, Q, H, N, P)
     before = ops.ssd_chunk_fused.launches
     y, st = ops.ssd_chunk_fused(**a)
     torch.cuda.synchronize()
     assert ops.ssd_chunk_fused.launches == before + 1
     ref_y, ref_st = ssd_chunk_ref(**a)
-    torch.testing.assert_close(y.float(), ref_y.float(), atol=atol, rtol=0)
+    tol = BF16_ULP if dtype == "bfloat16" else dict(atol=ATOL, rtol=0)
+    torch.testing.assert_close(y.float(), ref_y.float(), **tol)
     torch.testing.assert_close(st, ref_st, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,nc,Q,H,N,P", [
+    (1, 2, 256, 24, 128, 64),   # mamba2-130m, a 512-token prefill
+    (1, 1, 5, 24, 128, 64),     # a 5-token prompt: Q = 5
+    (2, 1, 200, 3, 128, 64),    # Q not a multiple of the 64-row tile
+    (1, 3, 8, 4, 16, 32),       # smoke widths
+])
+def test_ssd_chunk_kernel_matches_plain(dev, dtype, B, nc, Q, H, N, P):
+    _check_ssd(dev, dtype, B, nc, Q, H, N, P, Q * H + N + P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P", [24, 64])
+@pytest.mark.parametrize("N", [16, 20, 128])
+@pytest.mark.parametrize("Q", [1, 15, 16, 17, 63, 64, 65, 129, 200, 256])
+def test_ssd_chunk_tile_edges(dev, dtype, Q, N, P):
+    """Chunk lengths on each side of the 16-row warp tile and the 64-row
+    query and key tiles, N below, off and on the 16-wide k-step (N=20
+    takes element loads), P off the 16-wide output tile, over 2 batch rows
+    of 2 chunks."""
+    _check_ssd(dev, dtype, 2, 2, Q, 3, N, P, Q * 1000 + N * 10 + P)
 
 
 @pytest.mark.cuda
