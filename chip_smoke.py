@@ -20,7 +20,8 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    elements that differ from the plain output at all): Pix-Con (also
    ``normalize=False``, a temperature other than 1, and near ties: pixels
    whose features differ in one last bit, ``w`` to the bit and the same
-   ranking), the LSTM step (also H not a multiple
+   ranking; and the training shapes R=23 B=32, R=23 B=8, R=1 B=32),
+   the LSTM step (also the same training shapes, H not a multiple
    of its 8-unit tile, D=1, and D+H that walks the weight ring), paged
    attention
    (decode, verify and a 128-token prefill chunk of qwen2-1.5b, plus small
@@ -60,7 +61,29 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    the card's idle share within each timed call (CUDA events around it);
    a profiled repeat gives the device time by kernel; the serve CLI runs
    the same forecast;
-4. the LM main path: qwen2-1.5b at full width, random weights from the
+4. Dom-ST training at full width: the ``domst`` config, 23 watersheds,
+   400 days (296 training windows each, 9 steps an epoch at batch 32),
+   5 epochs = 45 stacked AdamW steps from the port's init with a fixed
+   seed, through the train CLI's loop (``Engine``, ``ShardedLoader``
+   with prefetch 2). With the launch counts set to 0 it must launch 45
+   Pix-Con and 2,700 LSTM-step kernels (the backward launches none: it
+   runs autograd through the plain versions); every loss must be finite
+   and the last epoch's mean loss below the first's; the held-out NSE
+   by watershed is printed before and after, with the median
+   synchronised step time and windows/s. A repeat of 3 steps gives the
+   device span (CUDA events), the device busy time and time by kernel
+   (torch.profiler) and so the idle share. Kernels against plain: the
+   same pixel permutations, every gradient leaf within 1e-4 of its
+   largest |grad|, then 5 steps each with losses within 1e-4 relative;
+   ``accum_steps=4`` gives one batch's SGD update (the step's momentum
+   buffer, the clipped gradient) within 1e-5 of each leaf's largest
+   |update|. The train CLI then runs the same training
+   (its launches: the 45 steps' and one held-out forward's) and saves
+   its checkpoint, which the serve CLI restores into the ``Forecaster``:
+   its forecast of the 74 held-out days must give eval_step's NSE within
+   1e-4. Last, the train CLI's sequential mode (3 watersheds, 1 epoch, one
+   replica each; launch counts checked alike);
+5. the LM main path: qwen2-1.5b at full width, random weights from the
    port's init (seed 0), 8 requests on 4 slots (prompts of 512/510/508/
    506 tokens, 64 new tokens each, 16-token pages) served in bf16 through
    the port's Scheduler three times — whole-prompt prefill, 128-token
@@ -78,7 +101,7 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    (within 2e-3 of the output's largest magnitude), and the greedy
    streams, kernel against plain, equal in all three modes on the same
    weights with the attention projections rescaled to unit variance;
-5. recurrentgemma-2b at full width (26 layers, d 2,560, vocab 256,000,
+6. recurrentgemma-2b at full width (26 layers, d 2,560, vocab 256,000,
    random weights from the port's init, seed 0, bf16, 16-token pages) on
    4 slots: whole-prompt prefill of prompts of 2,560/2,300/600/512 tokens
    (past the 2,048-token window), and 128-token chunks and ``spec_k=3``
@@ -92,14 +115,15 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    against the plain versions (2e-3), and fp32 greedy streams, kernels
    against plain, equal on the weights with rescaled attention
    projections (on the main path's weights printed);
-6. mamba2-130m at full width (24 layers, d 768, state 128, chunk 256):
+7. mamba2-130m at full width (24 layers, d 768, state 128, chunk 256):
    qwen2-1.5b's queue in the three modes (whole and spec: ssd_chunk and
    conv1d > 0; chunked: ssd_chunk 0; every mode: paged_attn 0), the same measurements and checks, its
    profiled repeat one wave of 4 requests x 32 tokens;
-7. one JSON line listing every ported kernel with its error, times, bound
-   and launches (by model and mode), then the line with the card's name
-   and power limit;
-8. the last line, ``{"ok": true, "device": {...}}``.
+8. one JSON line listing every ported kernel with its error, times, bound
+   and launches (by model and mode; Pix-Con and the LSTM step by path,
+   forecast and training, with their times at the training shapes), then
+   the line with the card's name and power limit;
+9. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card. Without CUDA, or run from a directory that does not
 hold the repository's ``src/repro_torch``, it exits non-zero and prints no
@@ -128,6 +152,19 @@ ATOL_NSE = 1e-4
 ATOL_QHAT = 1e-3
 WATERSHEDS, DAYS, SEED = 23, 400, 0
 TIMED_CALLS = 7      # warm forecasts timed; the median is reported
+# Dom-ST training: the train CLI's defaults (AdamW, batch 32 a watershed)
+# over 5 epochs of 296 training windows a watershed, 9 steps an epoch
+TRAIN_EPOCHS, TRAIN_BATCH, TRAIN_SEQ_WATERSHEDS = 5, 32, 3
+# kernel shapes of training: stacked, accumulated (4 microbatches of 8),
+# sequential (one replica)
+TRAIN_RB = ((WATERSHEDS, TRAIN_BATCH), (WATERSHEDS, TRAIN_BATCH // 4),
+            (1, TRAIN_BATCH))
+# gradients through the kernels against the plain run's, of each leaf's
+# largest |grad|; the losses of 5 steps, relative; accumulation against
+# one batch, of each leaf's largest |update| (one unclipped SGD step's
+# direction), and of the gradient norms, relative
+GRAD_REL, LOSS_REL, ACCUM_REL = 1e-4, 1e-4, 1e-5
+PROFILE_STEPS = 3
 
 # LM serving: qwen2-1.5b at full width, 8 requests on 4 slots, prompts of
 # 512/510/508/506 tokens, 64 new tokens each, 16-token pages
@@ -344,6 +381,7 @@ def check_pixcon(g, dev) -> dict:
              ((WATERSHEDS, 1, 30, 64), False, 2.5),
              ((3, 5, 17, 48), True, 1.0),
              ((3, 5, 17, 48), False, 0.7)]
+    cases += [((R, B, 30, 64), True, 1.0) for R, B in TRAIN_RB]
     for shape, normalize, temp in cases:
         a = pixcon_inputs(g, dev, *shape)
         out, w = pixcon_gate(**a, normalize=normalize, temperature=temp)
@@ -383,6 +421,19 @@ def check_pixcon(g, dev) -> dict:
     print(f"  pixcon {shape}: kernel {ms * 1e3:.2f} us (host "
           f"{call_host_us:.2f} us a call, device {device_us} us a launch), "
           f"plain {plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by})")
+    tshape = (*TRAIN_RB[0], 30, 64)
+    t = pixcon_inputs(g, dev, *tshape)
+    t_b_ms, t_b_by = bound_ms(*pixcon_work(*tshape))
+    training = {"shape": "R=23 B=32 T=30 P=64 F=4 Hp=32",
+                "ms": time_ms(lambda: pixcon_gate(**t)),
+                "device_us": launch_device_us(lambda: pixcon_gate(**t),
+                                              "pixcon_gate_kernel"),
+                "plain_ms": time_ms(lambda: pixcon_gate_ref(**t)),
+                "bound_ms": t_b_ms, "bound_by": t_b_by}
+    print(f"  pixcon {tshape} (training): kernel {training['ms'] * 1e3:.2f} "
+          f"us (device {training['device_us']} us a launch), plain "
+          f"{training['plain_ms'] * 1e3:.2f} us, bound {t_b_ms * 1e3:.3f} us "
+          f"({t_b_by})")
     return {"name": "pixcon", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/pixcon.cu",
             "replaces": "src/repro/kernels/pixcon/kernel.py:23",
@@ -390,7 +441,8 @@ def check_pixcon(g, dev) -> dict:
             "device_us": device_us, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": "R=23 B=1 T=30 P=64 F=4 Hp=32",
-            "library": "none: no one PyTorch call computes it"}
+            "library": "none: no one PyTorch call computes it",
+            "training": training}
 
 
 def check_lstm(g, dev) -> dict:
@@ -403,8 +455,10 @@ def check_lstm(g, dev) -> dict:
     main_shapes = [(WATERSHEDS, 1, 128, 64), (WATERSHEDS, 1, 64, 64)]
     # beside them: several examples a block, H not a multiple of the unit
     # tile, D = 1, and a K that walks the weight tile through the ring
-    for shape in main_shapes + [(3, 5, 48, 160), (1, WATERSHEDS, 128, 64),
-                                (4, 2, 7, 50), (5, 3, 1, 64), (2, 3, 4000, 64)]:
+    train_shapes = [(R, B, D, 64) for R, B in TRAIN_RB for D in (128, 64)]
+    for shape in main_shapes + train_shapes + [
+            (3, 5, 48, 160), (1, WATERSHEDS, 128, 64), (4, 2, 7, 50),
+            (5, 3, 1, 64), (2, 3, 4000, 64)]:
         a = lstm_inputs(g, dev, *shape)
         h, c = lstm_cell_fused(**a)
         torch.cuda.synchronize()
@@ -457,6 +511,25 @@ def check_lstm(g, dev) -> dict:
 
     def mean(v):
         return sum(v) / len(v)
+    # the training shapes of the stacked run's two layers, timed alike
+    t_ms, t_dev, t_plain, t_bound = [], [], [], []
+    for R, B, D, H in train_shapes[:2]:
+        a = lstm_inputs(g, dev, R, B, D, H)
+        t_ms.append(time_ms(lambda: lstm_cell_fused(**a)))
+        t_dev.append(launch_device_us(lambda: lstm_cell_fused(**a),
+                                      "lstm_cell_kernel"))
+        t_plain.append(time_ms(lambda: lstm_cell_ref(**a)))
+        t_bound.append(bound_ms(*lstm_work(R, B, D, H)))
+        print(f"  lstm_cell (R,B,D,H)={(R, B, D, H)} (training): kernel "
+              f"{t_ms[-1] * 1e3:.2f} us (device {t_dev[-1]} us a launch), "
+              f"plain {t_plain[-1] * 1e3:.2f} us, bound "
+              f"{t_bound[-1][0] * 1e3:.3f} us ({t_bound[-1][1]})")
+    training = {"shape": "R=23 B=32 H=64, D=128 and D=64 (mean of the two "
+                         "layers)",
+                "ms": mean(t_ms), "device_us_by_layer": t_dev,
+                "plain_ms": mean(t_plain),
+                "bound_ms": mean([b for b, _ in t_bound]),
+                "bound_by": t_bound[0][1]}
     return {"name": "lstm_cell", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
             "replaces": "src/repro/kernels/lstm_cell/kernel.py:18",
@@ -466,7 +539,7 @@ def check_lstm(g, dev) -> dict:
             "bound_by": b_ms[0][1], "library_ms": mean(lib_ms),
             "shape": "R=23 B=1 H=64, D=128 and D=64 (mean of the two layers)",
             "library_shape": "torch.lstm_cell at R=1 B=23",
-            "ms_at_library_shape": mean(lib_shape_ms)}
+            "ms_at_library_shape": mean(lib_shape_ms), "training": training}
 
 
 # ---------------------------------------------------------------------------
@@ -553,7 +626,7 @@ def graph_device_s(fc, params, placed, reference) -> float:
 def device_breakdown(fn, top: int = 8, host: bool = True) -> dict:
     """Device time by kernel over one call of ``fn``, from torch.profiler:
     the ``top`` rows of kernels that ran on the card, then any row of the
-    port's LM kernels below them (None where the profiler saw no device
+    port's kernels below them (None where the profiler saw no device
     activity: not measured). ``host=False`` records the device activity
     alone, which keeps a long run's trace small."""
     import torch
@@ -569,7 +642,7 @@ def device_breakdown(fn, top: int = 8, host: bool = True) -> dict:
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
-    # the top rows, and every row of the port's LM kernels below them (a
+    # the top rows, and every row of the port's kernels below them (a
     # kernel's time per launch adds up all of its symbols)
     ours = [r for r in rows[top:]
             if any(sym in r[1] for syms in KERNEL_SYMBOLS.values()
@@ -678,12 +751,255 @@ def main_path(dev) -> dict:
     check(cli["device"] == torch.cuda.get_device_name(dev) and cli_err <= ATOL_NSE,
           f"serve CLI NSE differs by {cli_err} (device {cli['device']})")
 
-    device_ms = {}
-    for name, kernel in (("pixcon", "pixcon_gate_kernel"),
-                         ("lstm_cell", "lstm_cell_kernel")):
-        hit = [r for r in prof["by_kernel"] if kernel in r["kernel"]]
-        device_ms[name] = hit[0]["device_ms"] / hit[0]["calls"] if hit else None
-    return launches, device_ms
+    per_launch = device_ms_per_launch(prof)
+    return launches, {k: per_launch.get(k) for k in launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: Dom-ST training
+# ---------------------------------------------------------------------------
+def pixel_orders(cfg, params, batch, ops):
+    """The partitioner's pixel permutation of ``batch`` under ``ops``."""
+    import torch
+    from repro_torch.core.domst import subtree
+    from repro_torch.core.partitioner import partition_pixels
+    from repro_torch.core.pixcon import pixcon_block
+    with torch.no_grad():
+        x, w = pixcon_block(subtree(params, "pixcon"), cfg.domst.pixcon,
+                            batch["precip"], batch["dist"],
+                            batch["target_day"], gate=ops.pixcon_gate)
+        return partition_pixels(x, w, cfg.domst.num_heads)[1]
+
+
+def leaf_rel_err(got: dict, want: dict) -> tuple[float, str]:
+    """The largest |got - want| of a leaf over that leaf's largest |want|,
+    and the leaf."""
+    worst, at = 0.0, ""
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        e = max_err(got[k], w) / scale if scale > 0 else float("inf")
+        if e > worst:
+            worst, at = e, k
+    return worst, at
+
+
+def train_main_path(dev) -> dict:
+    """Dom-ST training at full width: the train CLI's loop through the
+    library, counted and timed; a profiled repeat; kernels against plain
+    through the gradient; accumulation; the train CLI in both modes; and
+    the hand-off of its checkpoint to the serve CLI."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import domst
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.data.pipeline import (
+        InputPipeline, StackedSource, make_domst_windows, stacked_test_batch,
+        train_split)
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train import Engine, accumulate_grads
+
+    cfg = get_config("domst")
+    windows = make_domst_windows(WATERSHEDS, DAYS)
+    ip = InputPipeline([train_split(w) for w in windows],
+                       batch_size=TRAIN_BATCH, seed=SEED)
+    source = StackedSource(ip)
+    spe = source.steps_per_epoch
+    n_steps = TRAIN_EPOCHS * spe
+    # the CLI's TrainConfig at its defaults (lr 1e-3, 100-step horizon)
+    tc = TrainConfig(learning_rate=1e-3, total_steps=100, warmup_steps=50,
+                     seed=SEED)
+    engine = Engine.for_domst(cfg, tc, stacked=True, device=dev)
+    state0 = engine.init_state(domst.init(
+        cfg, torch.Generator().manual_seed(SEED), WATERSHEDS))
+    held = engine.place_batch(stacked_test_batch(windows))
+    nse_before = engine.eval_step(state0, held)["nse"].cpu().numpy()
+    print(f"  {WATERSHEDS} watersheds x {len(windows[0].discharge)} windows, "
+          f"{spe} steps an epoch, {n_steps} steps; held-out NSE before "
+          f"training: {np.round(nse_before, 4).tolist()}")
+
+    # the CLI's loop (stacked, prefetch 2), each step synchronised
+    loader = ShardedLoader(source, engine, prefetch=2, num_steps=n_steps)
+    state, losses, step_s = state0, [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    for batch in loader:
+        state, m = engine.step(state, batch)
+        losses.append(m["loss"])
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_s.append(now - t)
+        t = now
+    launches = read_launches()
+    want = {name: 0 for name in launches}
+    want.update(pixcon=n_steps,
+                lstm_cell=n_steps * cfg.domst.lstm_layers * cfg.domst.window_days)
+    print(f"  training launches {launches}")
+    check(launches == want, f"training launch counts {launches} != {want}")
+    check(loader.cursor == int(state.step) == n_steps,
+          f"cursor {loader.cursor}, step {int(state.step)}")
+    losses = torch.stack(losses)                            # (steps, W)
+    check(bool(torch.isfinite(losses).all()), "a non-finite training loss")
+    epoch_loss = losses.reshape(TRAIN_EPOCHS, spe, -1).mean(dim=(1, 2)).tolist()
+    print(f"  mean loss by epoch {np.round(epoch_loss, 5).tolist()}")
+    check(epoch_loss[-1] < epoch_loss[0], f"loss did not fall: {epoch_loss}")
+    nse_after = engine.eval_step(state, held)["nse"].cpu().numpy()
+    check(bool(np.isfinite(nse_after).all()), f"non-finite NSE {nse_after}")
+    print(f"  held-out NSE after training: {np.round(nse_after, 4).tolist()}")
+    steps_sorted = sorted(step_s[1:])          # the first step builds plans
+    step_p50 = steps_sorted[len(steps_sorted) // 2]
+    print(f"  step (synchronised) median {step_p50:.4f} s, "
+          f"{WATERSHEDS * TRAIN_BATCH / step_p50:.1f} windows/s")
+
+    # device busy and idle share of a few steps, and device time by kernel
+    batches = [engine.place_batch(source.host_batch(i))
+               for i in range(PROFILE_STEPS)]
+
+    def steps():
+        st = state0
+        for b in batches:
+            st, _ = engine.step(st, b)
+        return st
+    steps()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    steps()
+    end.record()
+    torch.cuda.synchronize()
+    span_s = start.elapsed_time(end) * 1e-3
+    wall_s = time.perf_counter() - t0
+    prof = device_breakdown(steps, top=16)
+    busy = prof["device_busy_s"]
+    idle = None if busy is None else 1 - busy / span_s
+    print(f"  {PROFILE_STEPS} steps: wall {wall_s:.4f} s, device span "
+          f"{span_s:.4f} s, profiled device busy {busy} s, idle share {idle}")
+    for r in prof["by_kernel"]:
+        print(f"    {r['device_ms']:9.3f} ms  {r['calls']:6d}  {r['kernel']}")
+    per_launch = device_ms_per_launch(prof)
+    device_ms = {k: per_launch.get(k) for k in ("pixcon", "lstm_cell")}
+
+    # kernels against plain through the gradient, then over 5 steps
+    plain = Engine.for_domst(cfg, tc, stacked=True, device=dev, ops=domst.PLAIN)
+    b0 = batches[0]
+    ok = pixel_orders(cfg, state0.params, b0, domst.KERNELS)
+    op = pixel_orders(cfg, state0.params, b0, domst.PLAIN)
+    flips = (ok != op).any(dim=-1)
+    if flips.any():
+        print(f"  rank flip in (watershed, example) "
+              f"{flips.nonzero().tolist()}")
+    check(not flips.any(), f"{int(flips.sum())} rows rank pixels differently")
+    gk, lk, _ = accumulate_grads(engine.loss_fn, state0.params, b0, 1)
+    gp, lp, _ = accumulate_grads(plain.loss_fn, state0.params, b0, 1)
+    check(all(bool(g.abs().max() > 0) for g in gk.values()),
+          "a leaf got no gradient through the kernels")
+    grad_err, grad_leaf = leaf_rel_err(gk, gp)
+    print(f"  gradients, kernels vs plain: worst leaf {grad_leaf} "
+          f"{grad_err:.3e} of its largest |grad| ({len(gk)} leaves)")
+    check(grad_err <= GRAD_REL, f"gradient of {grad_leaf} differs by "
+          f"{grad_err} of its scale > {GRAD_REL}")
+    sk, sp, loss_err = state0, state0, 0.0
+    for i in range(5):
+        b = engine.place_batch(source.host_batch(i))
+        sk, mk = engine.step(sk, b)
+        sp, mp = plain.step(sp, b)
+        loss_err = max(loss_err, float(((mk["loss"] - mp["loss"]).abs()
+                                        / mp["loss"].abs()).max()))
+    print(f"  5 steps, kernels vs plain: losses within {loss_err:.3e} relative")
+    check(loss_err <= LOSS_REL, f"losses differ by {loss_err} > {LOSS_REL}")
+
+    # accumulation: 4 microbatches of 8 give one batch of 32's update. One
+    # SGD step with the clip off: its update is -lr x the momentum buffer,
+    # which after one step is the averaged gradient itself (Adam's first
+    # step, lr x sign(grad), would hide the gradients; a clip would rescale
+    # a gradient that is wrong as a whole to the same norm). The buffer is
+    # compared, not the new params: an update of ~2e-5 added to a weight of
+    # ~0.1 keeps only the bits above the weight's ulp (~1e-8), ~1e-3 of the
+    # update. The gradient norms are compared too.
+    sgd = dataclasses.replace(tc, optimizer="sgd", grad_clip=0.0)
+    upd, gnorm = {}, {}
+    for A in (1, 4):
+        e = Engine.for_domst(cfg, sgd, stacked=True, accum_steps=A, device=dev)
+        st, m = e.step(e.init_state(state0.params), b0)
+        upd[A], gnorm[A] = st.opt_state.mu, m["grad_norm"]
+    accum_err, accum_leaf = leaf_rel_err(upd[4], upd[1])
+    norm_err = float(((gnorm[4] - gnorm[1]).abs() / gnorm[1]).max())
+    print(f"  accum_steps=4 vs 1: worst leaf {accum_leaf} {accum_err:.3e} of "
+          f"its largest |update|; gradient norms within {norm_err:.3e} "
+          f"relative")
+    check(accum_err <= ACCUM_REL, f"accumulated update of {accum_leaf} "
+          f"differs by {accum_err} > {ACCUM_REL}")
+    check(norm_err <= ACCUM_REL, f"accumulated gradient norm differs by "
+          f"{norm_err} > {ACCUM_REL}")
+
+    # the train CLI, stacked, with its checkpoint; then the serve CLI on it
+    ckpt = ROOT / "build" / "chip_smoke" / "domst_train.npz"
+    reset_launches()
+    cli = train_main(["--arch", "domst", "--watersheds", str(WATERSHEDS),
+                      "--days", str(DAYS), "--epochs", str(TRAIN_EPOCHS),
+                      "--batch-size", str(TRAIN_BATCH), "--seed", str(SEED),
+                      "--ckpt", str(ckpt)])
+    cli_launches = read_launches()
+    # its 45 steps, then one held-out evaluation (one forward)
+    cli_want = dict(want, pixcon=want["pixcon"] + 1,
+                    lstm_cell=want["lstm_cell"] + cfg.domst.lstm_layers
+                    * cfg.domst.window_days)
+    print(f"  train CLI: launches {cli_launches}, step_p50_s "
+          f"{cli['step_p50_s']}, NSE vs the loop's "
+          f"{float(np.abs(np.asarray(cli['nse']) - nse_after).max()):.3e}")
+    check(cli_launches == cli_want, f"train CLI launches {cli_launches} != "
+          f"{cli_want}")
+    check(cli["device"] == torch.cuda.get_device_name(dev)
+          and np.isfinite(cli["nse"]).all(), f"train CLI: {cli}")
+    served = serve_main(["--arch", "domst", "--watersheds", str(WATERSHEDS),
+                         "--days", str(DAYS), "--seed", str(SEED),
+                         "--ckpt", str(ckpt)])
+    handoff_err = float(np.abs(np.asarray(served["nse"])
+                               - np.asarray(cli["nse"])).max())
+    print(f"  serve CLI from the checkpoint, {served['horizon_days']} days: "
+          f"NSE vs eval_step's {handoff_err:.3e}")
+    check(served["restored"] and served["horizon_days"] == held["discharge"]
+          .shape[1] and handoff_err <= ATOL_NSE,
+          f"hand-off NSE differs by {handoff_err} > {ATOL_NSE}")
+
+    # sequential mode: one replica a watershed, each with its evaluation
+    reset_launches()
+    seq = train_main(["--arch", "domst", "--mode", "sequential",
+                      "--watersheds", str(TRAIN_SEQ_WATERSHEDS), "--days",
+                      str(DAYS), "--epochs", "1", "--batch-size",
+                      str(TRAIN_BATCH), "--seed", str(SEED)])
+    seq_launches = read_launches()
+    seq_forwards = TRAIN_SEQ_WATERSHEDS * (spe + 1)
+    seq_want = dict(want, pixcon=seq_forwards, lstm_cell=seq_forwards
+                    * cfg.domst.lstm_layers * cfg.domst.window_days)
+    print(f"  sequential CLI: launches {seq_launches}, NSE {seq['nse']}")
+    check(seq_launches == seq_want, f"sequential launches {seq_launches} != "
+          f"{seq_want}")
+    check(len(seq["nse"]) == TRAIN_SEQ_WATERSHEDS
+          and np.isfinite(seq["nse"]).all(), f"sequential NSE {seq['nse']}")
+
+    out = {"watersheds": WATERSHEDS, "batch": TRAIN_BATCH, "steps": n_steps,
+           "launches": launches, "step_s_median": step_p50,
+           "step_s_sorted": steps_sorted,
+           "windows_per_s": WATERSHEDS * TRAIN_BATCH / step_p50,
+           "cli_step_p50_s": cli["step_p50_s"],
+           "cli_step_p99_s": cli["step_p99_s"],
+           "cli_loader_wait_s": cli["loader_wait_s"],
+           "epoch_mean_loss": epoch_loss,
+           "nse_before": nse_before.tolist(), "nse_after": nse_after.tolist(),
+           "profiled_steps": PROFILE_STEPS, "profiled_wall_s": wall_s,
+           "device_span_s": span_s, "device_busy_s": busy,
+           "device_idle_share": idle,
+           "device_time_by_kernel": prof["by_kernel"],
+           "grad_rel_err": grad_err, "loss_rel_err": loss_err,
+           "accum_rel_err": accum_err, "handoff_nse_err": handoff_err,
+           "cli_launches": cli_launches, "sequential_launches": seq_launches}
+    print("  " + json.dumps(out))
+    return {"launches": launches, "device_ms": device_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1507,18 +1823,19 @@ def print_run(arch, name, r) -> None:
                       f"{row['kernel']}")
 
 
-# the device-side names of each LM kernel's launch: paged_attn launches
-# its merge as well where a call splits the page rows, and the bf16
-# kernels of ssd_chunk and local_attn (tensor cores) are others than
-# their fp32 ones
-KERNEL_SYMBOLS = {"paged_attn": ("paged_attn_kernel", "paged_attn_merge_kernel"),
+# the device-side names of each kernel's launch: paged_attn launches its
+# merge as well where a call splits the page rows, and the bf16 kernels of
+# ssd_chunk and local_attn (tensor cores) are others than their fp32 ones
+KERNEL_SYMBOLS = {"pixcon": ("pixcon_gate_kernel",),
+                  "lstm_cell": ("lstm_cell_kernel",),
+                  "paged_attn": ("paged_attn_kernel", "paged_attn_merge_kernel"),
                   "conv1d": ("conv1d_kernel",),
                   "ssd_chunk": ("ssd_chunk_kernel", "ssd_chunk_mma_kernel"),
                   "local_attn": ("local_attn_kernel", "local_attn_mma_kernel")}
 
 
 def device_ms_per_launch(prof: dict) -> dict:
-    """Device time of one launch of each LM kernel in a profiled run: its
+    """Device time of one launch of each port kernel in a profiled run: its
     kernels' device time over their launches (None: not in the profile's
     top rows). A launch runs each symbol once (ssd_chunk's two kernels) or
     not at all (paged_attn's merge), and a symbol's instantiations are
@@ -1923,10 +2240,15 @@ def main() -> int:
                check_local_attn(g, dev)]
     print(f"[3] main path: Forecaster, domst, 23 watersheds x 400 days (at {time.perf_counter() - T_START:.0f} s)")
     launches, device_ms = main_path(dev)
+    print(f"[4] main path: Dom-ST training, domst, 23 watersheds x 400 days, {TRAIN_EPOCHS} epochs (at {time.perf_counter() - T_START:.0f} s)")
+    train = train_main_path(dev)
+    by_path = {name: {"forecast": c, "training": train["launches"][name]}
+               for name, c in launches.items()}
+    launches = {name: sum(c.values()) for name, c in by_path.items()}
     by_model = {}
-    print(f"[4] main path: paged LM serving, qwen2-1.5b, 8 requests x 64 tokens (at {time.perf_counter() - T_START:.0f} s)")
+    print(f"[5] main path: paged LM serving, qwen2-1.5b, 8 requests x 64 tokens (at {time.perf_counter() - T_START:.0f} s)")
     by_model["qwen2-1.5b"] = lm_main_path(dev)
-    for n, arch in ((5, "recurrentgemma-2b"), (6, "mamba2-130m")):
+    for n, arch in ((6, "recurrentgemma-2b"), (7, "mamba2-130m")):
         print(f"[{n}] main path: paged serving, {arch} (at {time.perf_counter() - T_START:.0f} s)")
         by_model[arch] = recurrent_main_path(arch, dev)
     for res in by_model.values():
@@ -1939,6 +2261,9 @@ def main() -> int:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
         if k["name"] in device_ms:
             k["device_ms_per_launch_on_main_path"] = device_ms[k["name"]]
+            k["launches_by_path"] = by_path[k["name"]]
+            k["training"]["device_ms_per_launch_on_main_path"] = \
+                train["device_ms"][k["name"]]
             continue
         k["launches_by_mode"] = {
             arch: {mode: c[k["name"]] for mode, c in res["launches"].items()}
@@ -1947,7 +2272,7 @@ def main() -> int:
         k["device_ms_per_launch_on_main_path"] = {
             arch: device_ms_per_launch(res["profile"]).get(k["name"])
             for arch, res in by_model.items() if arch in k["launches_by_mode"]}
-    print(f"[7] all phases passed in {time.perf_counter() - T_START:.1f} s")
+    print(f"[8] all phases passed in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

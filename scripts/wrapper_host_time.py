@@ -25,6 +25,12 @@ types and the same arguments: the same conversions, and no launch.
 timings: they move by a few microseconds between runs and can come out
 negative.
 
+Where SRC has the training route's autograd Functions (``LstmCell``,
+``PixconGate``), ``function_route`` holds, at the same two shapes under
+``inference_mode`` as the forecast runs, the host time of one call by the
+wrapper's direct launch and by the Function's ``apply`` (the same launch),
+timed in turns over 7 rounds of 1,000 calls (median).
+
 Prints one JSON line. Host times move up to ~2x between calls and
 machines, so two trees are compared only in one call, in turns (parent,
 change, change, parent).
@@ -100,6 +106,20 @@ def host_breakdown(ops, call, host_us) -> dict:
     return out
 
 
+def route_cost(direct, through, host_us, rounds: int = 7) -> dict:
+    """Host time of one call of ``direct`` and of ``through`` under
+    ``inference_mode``, in microseconds, timed in turns (median)."""
+    import torch
+    runs = ([], [])
+    with torch.inference_mode():
+        for _ in range(rounds):
+            for r, fn in zip(runs, (direct, through)):
+                r.append(host_us(fn, calls=CALLS, repeats=1))
+    d, f = (sorted(r)[len(r) // 2] for r in runs)
+    return {"direct_us": d, "function_us": f, "difference_us": f - d,
+            "direct_runs_us": runs[0], "function_runs_us": runs[1]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -137,6 +157,15 @@ def main() -> int:
                pixcon_ops, lambda: pixcon_ops.pixcon_gate(**pix), timed),
            "ssd_chunk_mamba2_prefill": host_breakdown(
                ssd_ops, lambda: ssd_ops.ssd_chunk_fused(**ssd), timed)}
+    if hasattr(lstm_ops, "LstmCell"):
+        out["function_route"] = {
+            "lstm_cell_layer0": route_cost(
+                lambda: lstm_ops.lstm_cell_fused(**lstm),
+                lambda: lstm_ops.LstmCell.apply(*lstm.values()), host_us),
+            "pixcon_forecast": route_cost(
+                lambda: pixcon_ops.pixcon_gate(**pix),
+                lambda: pixcon_ops.PixconGate.apply(*pix.values(), 1.0, True),
+                host_us)}
     print(json.dumps(out))
     return 0
 

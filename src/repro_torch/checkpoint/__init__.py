@@ -1,1 +1,3 @@
-from repro_torch.checkpoint.checkpoint import restore_subtree  # noqa: F401
+from repro_torch.checkpoint.checkpoint import (  # noqa: F401
+    restore, restore_subtree, save,
+)

@@ -2,7 +2,8 @@
 the dense decoder, the SSM and the RG-LRU hybrid the port runs."""
 from repro_torch.configs.base import (  # noqa: F401
     ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, SSM, DomSTConfig, ModelConfig,
-    PixConConfig, RGLRUConfig, SSMConfig, get_config, list_configs, register,
+    PixConConfig, RGLRUConfig, SSMConfig, TrainConfig, get_config, list_configs,
+    register,
 )
 from repro_torch.configs import (  # noqa: F401
     domst, mamba2_130m, qwen2_1_5b, recurrentgemma_2b,

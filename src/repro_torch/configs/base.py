@@ -2,8 +2,8 @@
 dense-decoder, the Mamba-2 and the RecurrentGemma paths read of the
 reference's ``configs/base.py``.
 
-``SSMConfig``, ``RGLRUConfig``, ``PixConConfig``, ``DomSTConfig`` and
-``ModelConfig`` are field-for-field copies, with the same defaults and the
+``SSMConfig``, ``RGLRUConfig``, ``PixConConfig``, ``DomSTConfig``,
+``ModelConfig`` and ``TrainConfig`` are field-for-field copies, with the same defaults and the
 same helpers (``d_inner``, ``num_heads``, ``padded_vocab``,
 ``resolved_head_dim``, ``layer_kinds``, ``supports_decode``). The MoE
 sub-config is not ported yet: its field is kept so a config reads alike,
@@ -166,6 +166,26 @@ class ModelConfig:
 
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The reference's ``TrainConfig`` less what the port's Dom-ST training
+    does not read (the compute and param dtypes, remat, FSDP: the port
+    trains in float32 on one card)."""
+
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    schedule: str = "cosine"          # cosine | linear | constant
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"          # adamw | sgd
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_accum: int = 1               # microbatches per step (activation memory / A)
+    seed: int = 0
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

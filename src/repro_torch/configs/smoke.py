@@ -1,21 +1,31 @@
-"""Reduced smoke-test variants: 2 layers, d_model <= 256, vocab <= 512.
+"""Reduced smoke-test variants: 2 layers, d_model <= 256, vocab <= 512;
+for Dom-ST 16 pixels, 8-day windows and narrow layers.
 
-A copy of the LM, SSM and RG-LRU branches of the reference's
+A copy of the Dom-ST, LM, SSM and RG-LRU branches of the reference's
 ``configs/smoke.py::smoke_variant``, for the families the port runs. Its
-MoE branch waits for that block to be ported, and the Dom-ST branch for a
-caller: each raises ``NotImplementedError`` meanwhile.
+MoE branch waits for that block to be ported and raises
+``NotImplementedError`` meanwhile.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, PixConConfig
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Shrink ``cfg`` to a CPU-runnable variant of the same family."""
     if cfg.family == "domst":
-        raise NotImplementedError("the Dom-ST smoke variant is not ported")
+        return cfg.replace(
+            name=cfg.name + "-smoke",
+            domst=dataclasses.replace(
+                cfg.domst,
+                num_pixels=16, window_days=8, cnn_channels=8,
+                lstm_hidden=16, lstm_layers=2, mlp_hidden=16,
+                num_heads=min(cfg.domst.num_heads, 2),
+                pixcon=PixConConfig(hidden=8, num_partitions=2),
+            ),
+        )
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: the moe block is not ported yet (ROADMAP Queue A)")

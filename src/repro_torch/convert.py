@@ -14,7 +14,8 @@ layout:
   (``kernels.lstm_cell.ops.split_gates``).
 
 Only the trailing axes change, so stacked and unstacked leaves convert
-alike.
+alike; :func:`from_port_layout` repacks a leaf back, for the checkpoints
+the port writes in the reference's layout.
 
 An LM tree (one with an ``embed`` subtree) converts by
 :func:`lm_params_from_jax`: the reference scans a ``blocks`` subtree whose
@@ -56,6 +57,16 @@ def to_port_layout(key: str, arr: np.ndarray) -> np.ndarray:
         return arr.reshape(*arr.shape[:-2], arr.shape[-2])
     if _LSTM_LEAF.search(key):
         return split_gates(arr)
+    return arr
+
+
+def from_port_layout(key: str, arr: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`to_port_layout`: one leaf named ``key`` back
+    in the reference's layout."""
+    if key == "pixcon/w2" or key.endswith("/pixcon/w2"):
+        return arr.reshape(*arr.shape, 1)
+    if _LSTM_LEAF.search(key):
+        return arr.reshape(*arr.shape[:-2], arr.shape[-2] * arr.shape[-1])
     return arr
 
 

@@ -39,8 +39,9 @@ class KernelOps(NamedTuple):
     lstm_cell: Callable
 
 
-# The forward's kernels: the Hopper kernels on CUDA tensors, their plain
-# versions on CPU tensors.
+# The forward's kernels: the Hopper kernels on CUDA tensors (through their
+# autograd Functions where a gradient is wanted), their plain versions on
+# CPU tensors.
 KERNELS = KernelOps(pixcon_gate, lstm_cell_fused)
 # The plain versions on any device: only for holding the kernels' run
 # against them on the card.
@@ -86,8 +87,8 @@ def subtree(params: Params, prefix: str) -> Params:
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ops: KernelOps = KERNELS) -> torch.Tensor:
     """batch: precip (R,B,T,P), dist (R,B,P), target_day (R,B,P) -> qhat (R,B).
-    ``ops=PLAIN`` serves only to hold the kernels' run against their plain
-    versions on the card."""
+    ``ops=PLAIN`` (here and in ``loss_fn``/``evaluate``) serves only to
+    hold the kernels' run against their plain versions on the card."""
     dc = cfg.domst
     precip = batch["precip"]
     if dc.use_pixcon:
@@ -110,18 +111,22 @@ def forward_single(params: Params, cfg: ModelConfig,
                    {k: v[None] for k, v in batch.items()})[0]
 
 
-def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
-            ) -> Tuple[torch.Tensor, Dict]:
-    """Per-replica MSE loss (R,) and metrics."""
-    err = forward(params, cfg, batch) - batch["discharge"]
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            ops: KernelOps = KERNELS) -> Tuple[torch.Tensor, Dict]:
+    """Per-replica MSE loss (R,) and metrics. Replicas share nothing, so
+    the gradient of ``loss.sum()`` gives each replica the gradient of its
+    own loss, as the reference's ``jax.vmap`` of the step does. On the card
+    the gradient runs through the kernels' autograd Functions (forward on
+    the kernel, backward through the plain version)."""
+    err = forward(params, cfg, batch, ops) - batch["discharge"]
     loss = torch.mean(torch.square(err), dim=-1)
     return loss, {"mse": loss, "mae": torch.mean(torch.abs(err), dim=-1)}
 
 
-def evaluate(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
-             ) -> Dict[str, torch.Tensor]:
+def evaluate(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+             ops: KernelOps = KERNELS) -> Dict[str, torch.Tensor]:
     """Per-replica nse (R,), mse (R,) and the prediction qhat (R,B)."""
-    qhat = forward(params, cfg, batch)
+    qhat = forward(params, cfg, batch, ops)
     obs = batch["discharge"]
     return {"nse": nse(qhat, obs),
             "mse": torch.mean(torch.square(qhat - obs), dim=-1),
@@ -129,7 +134,8 @@ def evaluate(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 
 def eval_metrics(params: Params, cfg: ModelConfig,
-                 batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                 batch: Dict[str, torch.Tensor],
+                 ops: KernelOps = KERNELS) -> Dict[str, torch.Tensor]:
     """``evaluate`` minus the per-sample qhat series."""
-    ev = evaluate(params, cfg, batch)
+    ev = evaluate(params, cfg, batch, ops)
     return {"nse": ev["nse"], "mse": ev["mse"]}

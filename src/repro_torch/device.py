@@ -5,6 +5,9 @@ raises: the CPU is used only when the caller asks for it.
 """
 from __future__ import annotations
 
+from typing import Any
+
+import numpy as np
 import torch
 
 
@@ -24,3 +27,9 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 def device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def as_f32(v: Any, device: torch.device) -> torch.Tensor:
+    """An array or tensor as a contiguous float32 tensor on ``device``."""
+    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+    return t.to(device=device, dtype=torch.float32).contiguous()

@@ -23,6 +23,14 @@ packed into one ctypes argument.
 
 On a CPU tensor the wrapper computes the plain version in ``ref.py``. On
 a CUDA tensor it launches the kernel or raises; nothing falls back.
+
+Training: where a gradient is wanted (grad mode on and an input that
+requires one), the launch goes through :class:`LstmCell`, an autograd
+Function whose forward is the same launch and whose backward recomputes
+the step with the plain version and differentiates it. The JAX kernel
+has no backward either: the reference trains through ``jax.grad`` of its
+plain ``core/`` code. The forecast, under ``inference_mode``, keeps the
+direct launch and its short host path. Both routes launch the kernel.
 """
 from __future__ import annotations
 
@@ -127,6 +135,39 @@ def lstm_cell_fused(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
             return lstm_cell_ref(x, h, c, wx, wh, b)
         if kind != "cuda":
             raise ValueError(f"lstm_cell_fused: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or h.requires_grad or c.requires_grad
+            or wx.requires_grad or wh.requires_grad or b.requires_grad):
+        return LstmCell.apply(x, h, c, wx, wh, b)
+    return _launch(x, h, c, wx, wh, b)
+
+
+class LstmCell(torch.autograd.Function):
+    """The kernel's launch forward; backward by autograd through the plain
+    version, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, h, c, wx, wh, b):
+        ctx.save_for_backward(x, h, c, wx, wh, b)
+        return _launch(x, h, c, wx, wh, b)
+
+    @staticmethod
+    def backward(ctx, g_h, g_c):
+        needs = ctx.needs_input_grad
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            outs = lstm_cell_ref(*inputs)
+            grads = iter(torch.autograd.grad(
+                outs, [t for t, n in zip(inputs, needs) if n], (g_h, g_c),
+                allow_unused=True))
+        return tuple(next(grads) if n else None for n in needs)
+
+
+def _launch(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+            wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs and launch the kernel on tensors on the card."""
     try:
         (R, B, D), (_, _, H) = x.shape, h.shape
     except ValueError:

@@ -19,6 +19,16 @@ temperature's reciprocal as a float32 field).
 
 On a CPU tensor the wrapper computes the plain version in ``ref.py``. On
 a CUDA tensor it launches the kernel or raises; nothing falls back.
+
+Training: where a gradient is wanted (grad mode on and an input that
+requires one), the launch goes through :class:`PixconGate`, an autograd
+Function whose forward is the same launch and whose backward recomputes
+the gate with the plain version and differentiates the gated input. ``w``
+is marked non-differentiable: the partitioner only ranks pixels by
+``w.detach()``, so on the Dom-ST path no gradient reaches it. The JAX
+kernel has no backward either: the reference trains through ``jax.grad``
+of its plain ``core/`` code. The forecast, under ``inference_mode``, keeps
+the direct launch and its short host path. Both routes launch the kernel.
 """
 from __future__ import annotations
 
@@ -78,6 +88,47 @@ def pixcon_gate(x: torch.Tensor, feats: torch.Tensor, w1: torch.Tensor,
                                    normalize=normalize)
         if kind != "cuda":
             raise ValueError(f"pixcon_gate: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or feats.requires_grad or w1.requires_grad
+            or b1.requires_grad or w2.requires_grad or b2.requires_grad):
+        return PixconGate.apply(x, feats, w1, b1, w2, b2, temperature,
+                                normalize)
+    return _launch(x, feats, w1, b1, w2, b2, temperature, normalize)
+
+
+class PixconGate(torch.autograd.Function):
+    """The kernel's launch forward; backward by autograd through the plain
+    version of the gated input, recomputed from the saved inputs. ``w`` is
+    non-differentiable. Inputs that need no gradient (``precip`` and the
+    pixel features are data) get none."""
+
+    @staticmethod
+    def forward(ctx, x, feats, w1, b1, w2, b2, temperature, normalize):
+        ctx.save_for_backward(x, feats, w1, b1, w2, b2)
+        ctx.temperature, ctx.normalize = temperature, normalize
+        out, w = _launch(x, feats, w1, b1, w2, b2, temperature, normalize)
+        ctx.mark_non_differentiable(w)
+        return out, w
+
+    @staticmethod
+    def backward(ctx, g_out, _g_w):
+        needs = ctx.needs_input_grad[:6]
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            out, _ = pixcon_gate_ref(*inputs, temperature=ctx.temperature,
+                                     normalize=ctx.normalize)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(inputs, needs) if n], g_out,
+                allow_unused=True))
+        return (*(next(grads) if n else None for n in needs), None, None)
+
+
+def _launch(x: torch.Tensor, feats: torch.Tensor, w1: torch.Tensor,
+            b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+            temperature: float, normalize: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs and launch the kernel on tensors on the card."""
     try:
         (R, B, T, P), (_, F, Hp) = x.shape, w1.shape
     except ValueError:

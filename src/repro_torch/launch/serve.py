@@ -3,9 +3,9 @@
 Two modes, as in the reference's ``repro/launch/serve.py``:
 
   * ``--arch domst*`` — the stacked multi-watershed params, from the
-    port's own init or the ``params`` subtree of a checkpoint the
-    reference's training launcher wrote (``--ckpt``; optimizer moments are
-    never loaded), roll forward day by day over the held-out forcing
+    port's own init or the ``params`` subtree of a checkpoint that either
+    package's training launcher wrote (``--ckpt``, stacked mode; optimizer
+    moments are never loaded), roll forward day by day over the held-out forcing
     windows through :class:`Forecaster`, reporting per-watershed NSE
     against observed discharge;
   * a decoder — dense (``--arch qwen2-1.5b``), RG-LRU/local-attention
@@ -25,6 +25,8 @@ raises.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch domst
   PYTHONPATH=src python -m repro_torch.launch.serve --arch domst \\
       --watersheds 2 --days 150 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch domst \\
+      --ckpt run.npz      # written by repro_torch.launch.train --ckpt
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --requests 8 --prompt-len 512 --ragged --gen 64 --prefill-chunk 128
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
@@ -70,7 +72,7 @@ def serve_domst(args) -> dict:
     params = domst.init(cfg, torch.Generator().manual_seed(args.seed),
                         len(windows))
     if args.ckpt:
-        # params subtree of the full training state the trainer saved
+        # params subtree of the full training state either trainer saved
         params = restore_subtree(args.ckpt, params, prefix="params")
     held = stacked_test_batch(windows)
     params = fc.place_params(params)

@@ -15,12 +15,11 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import domst
-from repro_torch.device import resolve_device
+from repro_torch.device import as_f32, resolve_device
 from repro_torch.metrics.nse import nse
 
 FORCING_KEYS = ("precip", "target_day", "dist")
@@ -43,15 +42,15 @@ class Forecaster:
 
     def place_params(self, params: domst.Params) -> domst.Params:
         """Stacked params as contiguous float32 tensors on the device."""
-        return {k: _tensor(v, self.device) for k, v in params.items()}
+        return {k: as_f32(v, self.device) for k, v in params.items()}
 
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """(W, N, ...) arrays -> day-major (N, W, ...) tensors on the device,
         so each day's (W, ...) slice is contiguous; ``discharge`` stays
         (W, N)."""
-        out = {k: _tensor(batch[k], self.device).transpose(0, 1).contiguous()
+        out = {k: as_f32(batch[k], self.device).transpose(0, 1).contiguous()
                for k in FORCING_KEYS}
-        out["discharge"] = _tensor(batch["discharge"], self.device)
+        out["discharge"] = as_f32(batch["discharge"], self.device)
         return out
 
     def __call__(self, params: domst.Params, batch: Dict[str, Any]
@@ -73,9 +72,3 @@ class Forecaster:
             qhat = torch.stack(qs, dim=1)                         # (W, N)
             return {"qhat": qhat, "nse": nse(qhat, obs),
                     "mse": torch.mean(torch.square(qhat - obs), dim=-1)}
-
-
-def _tensor(v: Any, device: torch.device) -> torch.Tensor:
-    """An array or tensor as a contiguous float32 tensor on ``device``."""
-    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-    return t.to(device=device, dtype=torch.float32).contiguous()

@@ -593,3 +593,155 @@ def test_plan_lstm_fits_shared_memory_up_to_12k_rows(R, B, H, K):
     p = lstm_ops.plan_lstm(R, B, D, H)
     assert p.smem <= SMEM_LIMIT
     assert p.stages * p.rows * 16 * p.ju <= lstm_ops.RING_BYTES
+
+
+# ---------------------------------------------------------------------------
+# The autograd Functions: the kernel forward, autograd through the plain
+# version backward, taken down the CUDA route with a stand-in library that
+# computes the plain version into the launch's output pointers
+# ---------------------------------------------------------------------------
+def _at(ptr, *shape):
+    """The float32 tensor at ``ptr`` (an ``_OnCard`` tensor's CPU memory)."""
+    import ctypes
+    buf = (ctypes.c_float * int(np.prod(shape))).from_address(ptr)
+    return torch.from_numpy(np.ctypeslib.as_array(buf).reshape(shape))
+
+
+class _PlainLibrary:
+    """Stands in for the Pix-Con and LSTM-step libraries: each launch reads
+    its inputs at the packed pointers, computes the plain version there
+    and writes it to the packed outputs."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def pixcon_gate_launch(self, packed):
+        from repro_torch.kernels.pixcon.ref import pixcon_gate_ref
+        f = struct.unpack("=18qf", packed)
+        R, B, T, P, F, Hp = f[8:14]
+        ins = [_at(f[0], R, B, T, P), _at(f[1], R, B, P, F),
+               _at(f[2], R, F, Hp), _at(f[3], R, Hp), _at(f[4], R, Hp),
+               _at(f[5], R, 1)]
+        out, w = pixcon_gate_ref(*ins, temperature=1.0 / float(f[18]),
+                                 normalize=bool(f[14]))
+        _at(f[6], R, B, T, P).copy_(out)
+        _at(f[7], R, B, P).copy_(w)
+        self.launches += 1
+        return 0
+
+    def lstm_cell_launch(self, packed):
+        from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+        f = struct.unpack("21q", packed)
+        R, B, D, H = f[8:12]
+        ins = [_at(f[0], R, B, D), _at(f[1], R, B, H), _at(f[2], R, B, H),
+               _at(f[3], R, D, 4, H), _at(f[4], R, H, 4, H), _at(f[5], R, 4, H)]
+        h, c = lstm_cell_ref(*ins)
+        _at(f[6], R, B, H).copy_(h)
+        _at(f[7], R, B, H).copy_(c)
+        self.launches += 1
+        return 0
+
+
+@pytest.fixture
+def plain_library(monkeypatch):
+    lib = _PlainLibrary()
+    for ops in (pixcon_ops, lstm_ops):
+        monkeypatch.setattr(ops, "_lib", lambda: lib)
+        monkeypatch.setattr(ops, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(lstm_ops, "sm_count", lambda dev: 132)
+    for fn in (pixcon_ops.pixcon_gate, lstm_ops.lstm_cell_fused):
+        monkeypatch.setattr(fn, "launches", fn.launches)
+    return lib
+
+
+def _plain(t, grad=False):
+    return t.as_subclass(torch.Tensor).detach().clone().requires_grad_(grad)
+
+
+def _grads_through(fn, inputs, wanted, seed):
+    """Outputs of ``fn(*inputs)`` and the gradients of a fixed random
+    linear function of those that require one with respect to ``wanted``."""
+    outs = fn(*inputs)
+    g = torch.Generator().manual_seed(seed)
+    loss = sum((o.as_subclass(torch.Tensor)
+                * torch.randn(o.shape, generator=g)).sum()
+               for o in outs if o.requires_grad)
+    grads = torch.autograd.grad(loss, [inputs[i] for i in wanted])
+    return outs, [gr.as_subclass(torch.Tensor) for gr in grads]
+
+
+@pytest.mark.parametrize("normalize,temperature", [(True, 1.0), (False, 0.5)])
+@pytest.mark.parametrize("wanted", [(2, 3, 4, 5), (0, 2, 3, 4, 5)])
+def test_pixcon_function_gradients_are_autograd_through_plain(
+        plain_library, normalize, temperature, wanted):
+    """The gated output differentiated, ``w`` non-differentiable; data
+    inputs (x, the features) get no gradient unless they ask for one."""
+    from repro_torch.kernels.pixcon.ref import pixcon_gate_ref
+    a = _pixcon_inputs(R=2, B=3, T=5, P=8)
+    names = ("x", "feats", "w1", "b1", "w2", "b2")
+    card = [a[n].requires_grad_(i in wanted) for i, n in enumerate(names)]
+    kw = dict(temperature=temperature, normalize=normalize)
+    outs, grads = _grads_through(
+        lambda *t: pixcon_ops.pixcon_gate(*t, **kw), card, wanted, seed=1)
+    assert plain_library.launches == 1 and pixcon_ops.pixcon_gate.launches >= 1
+    assert type(outs[0].grad_fn).__name__ == "PixconGateBackward"
+    assert not outs[1].requires_grad
+
+    def plain_gate(*t):
+        out, w = pixcon_gate_ref(*t, **kw)
+        return out, w.detach()
+    plain = [_plain(a[n], i in wanted) for i, n in enumerate(names)]
+    want_outs, want = _grads_through(plain_gate, plain, wanted, seed=1)
+    for o, w in zip(outs, want_outs):
+        assert torch.equal(o.as_subclass(torch.Tensor).detach(), w.detach())
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("wanted", [(0, 1, 2, 3, 4, 5), (3, 4, 5), (0, 3)])
+def test_lstm_function_gradients_are_autograd_through_plain(plain_library,
+                                                            wanted):
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+    a = _lstm_inputs(R=2, B=3, D=8, H=16)
+    names = ("x", "h", "c", "wx", "wh", "b")
+    card = [a[n].requires_grad_(i in wanted) for i, n in enumerate(names)]
+    outs, grads = _grads_through(lstm_ops.lstm_cell_fused, card, wanted, seed=2)
+    assert plain_library.launches == 1
+    assert type(outs[0].grad_fn).__name__ == "LstmCellBackward"
+    plain = [_plain(a[n], i in wanted) for i, n in enumerate(names)]
+    want_outs, want = _grads_through(lstm_cell_ref, plain, wanted, seed=2)
+    for o, w in zip(outs, want_outs):
+        assert torch.equal(o.as_subclass(torch.Tensor).detach(), w.detach())
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["inference_mode", "no_grad", "no_input_grad"])
+def test_forecast_route_launches_directly(plain_library, monkeypatch, mode):
+    """Without a gradient to take, a wrapper launches the kernel directly:
+    the autograd Functions are never entered."""
+    def no_function(*a):
+        raise AssertionError("an autograd Function was entered")
+    monkeypatch.setattr(pixcon_ops.PixconGate, "apply", no_function)
+    monkeypatch.setattr(lstm_ops.LstmCell, "apply", no_function)
+    p, s = _pixcon_inputs(), _lstm_inputs()
+    if mode != "no_input_grad":
+        for t in (p["w1"], s["wx"]):
+            t.requires_grad_()
+    ctx = {"inference_mode": torch.inference_mode, "no_grad": torch.no_grad,
+           "no_input_grad": torch.enable_grad}[mode]
+    with ctx():
+        out, w = pixcon_ops.pixcon_gate(**p)
+        h, c = lstm_ops.lstm_cell_fused(**s)
+    assert plain_library.launches == 2
+    assert all(t.grad_fn is None and not t.requires_grad for t in (out, w, h, c))
+
+
+def test_cpu_route_is_the_plain_version_under_autograd():
+    """On CPU tensors the wrappers return the plain version, traced by
+    autograd as usual, and launch nothing."""
+    a = {k: _plain(v, k.startswith(("w", "b"))) for k, v in _lstm_inputs().items()}
+    before = lstm_ops.lstm_cell_fused.launches
+    h, _ = lstm_ops.lstm_cell_fused(**a)
+    assert lstm_ops.lstm_cell_fused.launches == before
+    assert h.grad_fn is not None and "LstmCell" not in type(h.grad_fn).__name__

@@ -11,7 +11,10 @@ the Pix-Con weights, which must agree to the bit (the partitioner ranks
 pixels by them). Paged attention in bf16: atol 2e-2, one bf16 ulp at
 |out| < 4, since a score summed in another order can round through bf16
 to the neighbouring value. The SSD chunk's bf16 y: one bf16 ulp at every
-magnitude (``BF16_ULP``), since its outputs reach |y| ~ 140.
+magnitude (``BF16_ULP``), since its outputs reach |y| ~ 140. Gradients
+through the Pix-Con and LSTM autograd Functions (kernel forward, plain
+backward): within 1e-4 of each leaf's largest |grad| (``GRAD_REL``), at
+the training shapes.
 """
 import pytest
 
@@ -25,6 +28,7 @@ ATOL = 1e-5
 # a y that lies near a bf16 rounding boundary lands on the neighbouring
 # value.
 BF16_ULP = dict(atol=2e-2, rtol=2 ** -7)
+GRAD_REL = 1e-4
 
 
 @pytest.fixture
@@ -40,7 +44,9 @@ def _rn(g, dev, *shape, s=1.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,B,T,P", [(23, 1, 30, 64), (3, 5, 17, 48)])
+@pytest.mark.parametrize("R,B,T,P", [(23, 1, 30, 64), (3, 5, 17, 48),
+                                     (23, 32, 30, 64), (23, 8, 30, 64),
+                                     (1, 32, 30, 64)])
 @pytest.mark.parametrize("normalize,temperature", [(True, 1.0), (False, 2.5)])
 def test_pixcon_kernel_matches_plain(dev, R, B, T, P, normalize, temperature):
     from repro_torch.kernels.pixcon import ops
@@ -98,6 +104,9 @@ def test_pixcon_near_ties_bit_equal(dev, R, B, T, P):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,B,D,H", [(23, 1, 128, 64), (23, 1, 64, 64),
+                                     # training: stacked, accumulated, sequential
+                                     (23, 32, 128, 64), (23, 32, 64, 64),
+                                     (23, 8, 128, 64), (1, 32, 64, 64),
                                      (3, 5, 48, 160), (1, 23, 128, 64),
                                      (4, 2, 7, 50),     # H not a multiple of 8
                                      (5, 3, 1, 64),     # D = 1
@@ -522,3 +531,103 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         local_attention_fused(q.transpose(1, 2).contiguous().transpose(1, 2),
                               q[:, :, :2].contiguous(), q[:, :, :2].contiguous(),
                               window=4)
+
+
+def _grad_close(what, got, want):
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert scale > 0 and err <= GRAD_REL * scale, (what, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,B", [(23, 32), (23, 8), (1, 32)])
+def test_pixcon_function_backward_matches_plain(dev, R, B):
+    """The training route: gradients of a random linear function of the
+    gated output (``w`` is non-differentiable), through the kernel's
+    Function and through the plain version."""
+    from repro_torch.kernels.pixcon import ops
+    from repro_torch.kernels.pixcon.ref import pixcon_gate_ref
+    g = torch.Generator().manual_seed(R * B)
+    a = dict(x=_rn(g, dev, R, B, 30, 64).abs(), feats=_rn(g, dev, R, B, 64, 4),
+             w1=_rn(g, dev, R, 4, 32, s=0.5), b1=_rn(g, dev, R, 32, s=0.1),
+             w2=_rn(g, dev, R, 32, s=0.2), b2=_rn(g, dev, R, 1, s=0.1))
+    up = _rn(g, dev, R, B, 30, 64)
+    grads = {}
+    for fn in (ops.pixcon_gate, pixcon_gate_ref):
+        leaves = {k: v.clone().requires_grad_(k not in ("x", "feats"))
+                  for k, v in a.items()}
+        before = ops.pixcon_gate.launches
+        out, w = fn(**leaves)
+        launched = ops.pixcon_gate.launches - before
+        assert launched == (1 if fn is ops.pixcon_gate else 0)
+        assert w.requires_grad == (fn is pixcon_gate_ref)
+        (out * up).sum().backward()
+        assert ops.pixcon_gate.launches - before == launched   # backward: none
+        grads[fn] = {k: leaves[k].grad for k in ("w1", "b1", "w2", "b2")}
+    for k, want in grads[pixcon_gate_ref].items():
+        _grad_close(k, grads[ops.pixcon_gate][k], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,B,D", [(23, 32, 128), (23, 32, 64), (23, 8, 128),
+                                   (1, 32, 64)])
+def test_lstm_function_backward_matches_plain(dev, R, B, D):
+    """Thirty steps of one layer, as the temporal block runs them; the
+    gradients of every input through the kernel's Function and through the
+    plain version."""
+    from repro_torch.kernels.lstm_cell import ops
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+    H, T = 64, 30
+    g = torch.Generator().manual_seed(R + B + D)
+    a = dict(xs=_rn(g, dev, T, R, B, D), wx=_rn(g, dev, R, D, 4, H, s=D ** -0.5),
+             wh=_rn(g, dev, R, H, 4, H, s=H ** -0.5), b=_rn(g, dev, R, 4, H, s=0.1))
+    up = _rn(g, dev, R, B, H)
+    grads = {}
+    for fn in (ops.lstm_cell_fused, lstm_cell_ref):
+        leaves = {k: v.clone().requires_grad_() for k, v in a.items()}
+        h = torch.zeros(R, B, H, device=dev)
+        c = torch.zeros_like(h)
+        before = ops.lstm_cell_fused.launches
+        for t in range(T):
+            h, c = fn(leaves["xs"][t], h, c, leaves["wx"], leaves["wh"],
+                      leaves["b"])
+        (h * up).sum().backward()
+        assert ops.lstm_cell_fused.launches - before == \
+            (T if fn is ops.lstm_cell_fused else 0)
+        grads[fn] = {k: v.grad for k, v in leaves.items()}
+    for k, want in grads[lstm_cell_ref].items():
+        _grad_close(k, grads[ops.lstm_cell_fused][k], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,B", [(23, 32), (1, 32)])
+def test_domst_gradients_through_kernels_match_plain(dev, R, B):
+    """``loss.backward()`` through ``domst.forward`` on the card gives every
+    Pix-Con, spatial, LSTM and head leaf a gradient, within ``GRAD_REL`` of
+    the plain run's, with the same pixel permutations."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import domst
+    from repro_torch.core.partitioner import partition_pixels
+    from repro_torch.core.pixcon import pixcon_block
+    cfg = get_config("domst")
+    g = torch.Generator().manual_seed(7)
+    params = {k: v.to(dev) for k, v in domst.init(cfg, g, R).items()}
+    batch = {"precip": (torch.rand(R, B, 30, 64, generator=g) * 3).to(dev),
+             "dist": torch.rand(R, B, 64, generator=g).to(dev),
+             "target_day": (torch.rand(R, B, 64, generator=g) * 3).to(dev),
+             "discharge": torch.randn(R, B, generator=g).to(dev)}
+    orders, grads = [], []
+    for ops in (domst.KERNELS, domst.PLAIN):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        x, w = pixcon_block(domst.subtree(leaves, "pixcon"), cfg.domst.pixcon,
+                            batch["precip"], batch["dist"], batch["target_day"],
+                            gate=ops.pixcon_gate)
+        orders.append(partition_pixels(x, w, cfg.domst.num_heads)[1])
+        loss, _ = domst.loss_fn(leaves, cfg, batch, ops)
+        loss.sum().backward()
+        grads.append({k: v.grad for k, v in leaves.items()})
+    assert torch.equal(orders[0], orders[1])
+    assert grads[0].keys() == grads[1].keys() == params.keys()
+    for k in params:
+        assert grads[0][k] is not None, k
+        _grad_close(k, grads[0][k], grads[1][k])

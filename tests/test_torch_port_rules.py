@@ -158,3 +158,48 @@ def test_new_wrappers_raise_on_a_cuda_tensor_without_a_card(monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA kernel library"):
         fn(*args, **kw)
     assert fn.launches == before
+
+
+def test_train_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.train import Engine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine.for_domst(get_config("domst"), TrainConfig())
+    eng = Engine.for_domst(get_config("domst"), TrainConfig(), device="cpu")
+    assert eng.device.type == "cpu"
+
+
+def test_train_cli_without_device_flag_raises_without_cuda():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "domst",
+         "--watersheds", "1", "--days", "60", "--epochs", "1"],
+        env=_env(CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert out.stdout == ""
+
+
+def test_cpu_training_step_launches_no_kernel():
+    """On the CPU a training step runs the plain versions under autograd:
+    every leaf gets a gradient, and no kernel is launched."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import domst
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell_fused
+    from repro_torch.kernels.pixcon.ops import pixcon_gate
+    from repro_torch.train import Engine, accumulate_grads
+    cfg = get_config("domst")
+    g = torch.Generator().manual_seed(0)
+    eng = Engine.for_domst(cfg, TrainConfig(), stacked=True, device="cpu")
+    state = eng.init_state(domst.init(cfg, g, 2))
+    batch = {"precip": torch.rand(2, 4, 30, 64, generator=g),
+             "dist": torch.rand(2, 4, 64, generator=g),
+             "target_day": torch.rand(2, 4, 64, generator=g),
+             "discharge": torch.rand(2, 4, generator=g)}
+    before = (pixcon_gate.launches, lstm_cell_fused.launches)
+    grads, _, _ = accumulate_grads(eng.loss_fn, state.params, batch, 1)
+    assert all(bool(v.abs().max() > 0) for v in grads.values())
+    new, m = eng.step(state, batch)
+    assert int(new.step) == 1 and m["loss"].shape == (2,)
+    assert (pixcon_gate.launches, lstm_cell_fused.launches) == before
