@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    kernels/csrc``, timed (one ``nvcc`` per source, all six at once), with
    the registers and spills ``ptxas -v`` reports; a spill store in a bf16,
    D=256 instantiation of the two attention kernels (local attention on
-   the tensor cores, paged attention and its merge) or in any
+   the tensor cores, without and with the softcap; paged attention and
+   its merge) or in any
    instantiation of the SSD chunk's bf16 (tensor-core) kernel fails the
    run;
 2. each kernel against its plain PyTorch version on the card, at its
@@ -24,8 +25,11 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    the LSTM step (also the same training shapes, H not a multiple
    of its 8-unit tile, D=1, and D+H that walks the weight ring), paged
    attention
-   (decode, verify and a 128-token prefill chunk of qwen2-1.5b, plus small
-   shapes with a window, a softcap, unassigned pages and an empty row),
+   (decode, verify and a 128-token prefill chunk of qwen2-1.5b and of
+   recurrentgemma-2b's local layers, gemma2-2b's decode with its softcap
+   of 50 on a local and a global layer, llama3.2-3b's (G=3) and olmo-1b's
+   (G=1) decode, plus small shapes with a window, a softcap, unassigned
+   pages and an empty row),
    the causal conv1d (mamba2-130m's and recurrentgemma-2b's prefill and
    step shapes, C not a multiple of 128 or of the 8-channel vector, S=1
    and S=2 with a tail, S > 2,048, S < K-1, an input viewed at an odd
@@ -35,18 +39,26 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    256}, and the bf16 kernel's tile edges: Q from 1 to 256 on each side
    of 16 and 64, N in {16, 20, 128}, P in {24, 64}, 2 batch rows of 2
    chunks, in both dtypes) and local attention (recurrentgemma-2b's
-   2,560- and 600-token
-   prefills, S not a tile multiple, non-causal, Hkv = Hq and MQA); the
-   time of a launch, of the plain version and of one PyTorch call
-   computing the same function where there is one (``torch.lstm_cell``;
+   2,560- and 600-token prefills, S not a tile multiple, non-causal,
+   Hkv = Hq and MQA, all without a softcap; gemma2-2b's 4,608- and
+   1,024-token prefills and two ragged shapes with its softcap of 50,
+   q scaled so that the cap moves the output and v halved so that every
+   output stays under 4, as ``ATOL_BF16`` assumes); the time of a launch, of
+   the plain version and of one PyTorch call computing the same function
+   where there is one (``torch.lstm_cell``;
    ``scaled_dot_product_attention`` over K/V gathered beforehand, the
-   gather timed apart, or with a boolean band mask; ``F.conv1d`` with
-   ``groups=C``, SiLU timed apart) — yardsticks only: the port never
-   calls them — beside the bound; for each timed paged-attention shape,
-   the split of the page rows over blocks (pages a split, splits,
-   blocks); and for Pix-Con, the LSTM step, conv1d and the SSD chunk,
-   beside each timed shape, the host time of a call (``host_us``) and the
-   device time of a launch (``device_us``, torch.profiler);
+   gather timed apart, or with a boolean band mask, where there is no
+   softcap; with gemma2's softcap, in bf16, ``flex_attention`` compiled
+   with the cap as its score_mod, the same way; ``F.conv1d`` with
+   ``groups=C``, SiLU timed apart) —
+   yardsticks only: the port never calls them — beside the bound; for
+   each timed paged-attention shape, the split of the page rows over
+   blocks (pages a split, splits, blocks); and for Pix-Con, the LSTM
+   step, conv1d, the SSD chunk, local attention and gemma2's paged
+   attention, beside each timed shape, the host time of a call
+   (``host_us``) and the device time of a launch (``device_us``,
+   torch.profiler); local attention with the softcap is timed in turns
+   with the same shape without it;
 3. the Dom-ST main path: the Forecaster at full width (the ``domst``
    config, 23 watersheds, 400 days, 74 held-out days), params from the
    port's init with a fixed seed. With the launch counts set to 0 it runs
@@ -119,19 +131,42 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    qwen2-1.5b's queue in the three modes (whole and spec: ssd_chunk and
    conv1d > 0; chunked: ssd_chunk 0; every mode: paged_attn 0), the same measurements and checks, its
    profiled repeat one wave of 4 requests x 32 tokens;
-8. one JSON line listing every ported kernel with its error, times, bound
+8. gemma2-2b at full width and depth (26 layers alternating local and
+   global, d 2,304, 8 heads on 4 of 256, vocab 256,000, attention
+   softcap 50, final softcap 30, sandwich norms; 2.614 B params, cast to
+   bf16 from a float32 init that is freed at once): whole prefill of
+   prompts of 4,608/4,300/1,024/512 tokens (two past the 4,096-token
+   window), 128-token chunks and ``spec_k=3`` on 512/510/508/506, 32 new
+   tokens each; local_attn exactly once a local layer a request in whole
+   prefill and spec (13 x 4 = 52), 0 with chunks; paged_attn > 0; the
+   other four kernels 0; the same measurements and checks as phase 6
+   (the spec run's damped weights also scale the sandwich norms after
+   each damped projection);
+9. llama3.2-3b (28 layers, d 3,072, 24 heads on 8) and olmo-1b (16
+   layers, d 2,048, 16 heads on 16, LayerNorm without affine parameters)
+   at full width: whole prefill of qwen2-1.5b's queue cut to 4 requests
+   x 32 new tokens (paged_attn > 0, every other kernel 0), tok/s, and one
+   bf16 decode step's logits, kernel against plain: printed on the main
+   path's weights, with plain on the card against plain on the CPU (the
+   init law makes both models chaotic in bf16), and held within 2^-5 on
+   the weights with unit-variance attention projections; then every
+   launch of an fp32 whole-prefill run held against the plain version
+   (2e-3);
+10. one JSON line listing every ported kernel with its error, times, bound
    and launches (by model and mode; Pix-Con and the LSTM step by path,
    forecast and training, with their times at the training shapes), then
    the line with the card's name and power limit;
-9. the last line, ``{"ok": true, "device": {...}}``.
+11. the last line, ``{"ok": true, "device": {...}}``.
 
-It needs one card. Without CUDA, or run from a directory that does not
+It needs one card. ``torch.compile`` (the flex_attention yardstick)
+keeps its caches under ``build/`` and compiles in this process. Without CUDA, or run from a directory that does not
 hold the repository's ``src/repro_torch``, it exits non-zero and prints no
 result. It imports nothing of JAX and nothing of the reference package.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -172,25 +207,32 @@ LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_GEN, LM_SEED = 8, 4, 512, 64, 0
 LM_LENS = [LM_PROMPT - (i % 4) * 2 for i in range(LM_REQUESTS)]
 LM_MAX_LEN = LM_PROMPT + LM_GEN
 LM_CHUNK, LM_SPEC_K = 128, 3
-# The recurrent models' queues on 4 slots, by mode, and the queue of the
-# profiled repeat of whole prefill. recurrentgemma-2b: whole prefill with
-# prompts past its 2,048-token window (local_attn's band, the ring-to-pages
-# fill and paged_attn's window all do real work); chunked prefill and
-# speculative verify step each recurrent layer through a prompt's tokens,
-# so they take 512-token prompts. mamba2-130m: qwen2-1.5b's queue in all
-# three modes; its profiled repeat is one wave (4 requests, 32 tokens):
-# the profiler's post-processing of the whole queue's ~150,000 launches
-# would cost about a minute.
-RG_STEP_LENS = LM_LENS[:4]
-RECURRENT_RUNS = {
+# The served models' queues on 4 slots, by mode, and the queue of the
+# profiled repeat of whole prefill. recurrentgemma-2b and gemma2-2b: whole
+# prefill with prompts past their window (2,048 and 4,096 tokens:
+# local_attn's band, the ring-to-pages fill and paged_attn's window all do
+# real work); chunked prefill and speculative verify take 512-token prompts
+# (a recurrent layer steps through every token of a chunk). mamba2-130m:
+# qwen2-1.5b's queue in all three modes; its profiled repeat is one wave
+# (4 requests, 32 tokens): the profiler's post-processing of the whole
+# queue's ~150,000 launches would cost about a minute.
+STEP_LENS = LM_LENS[:4]
+SERVED_RUNS = {
     "recurrentgemma-2b": {
-        "lens": {"whole": [2560, 2300, 600, 512], "chunked": RG_STEP_LENS,
-                 "spec": RG_STEP_LENS},
+        "lens": {"whole": [2560, 2300, 600, 512], "chunked": STEP_LENS,
+                 "spec": STEP_LENS},
         "gen": 32, "profile": ([2560, 2300, 600, 512], 32)},
     "mamba2-130m": {
         "lens": {"whole": LM_LENS, "chunked": LM_LENS, "spec": LM_LENS},
         "gen": LM_GEN, "profile": (LM_LENS[:4], 32)},
+    "gemma2-2b": {
+        "lens": {"whole": [4608, 4300, 1024, 512], "chunked": STEP_LENS,
+                 "spec": STEP_LENS},
+        "gen": 32, "profile": ([4608, 4300, 1024, 512], 32)},
 }
+# The other dense decoders at full width, whole prefill only, on
+# qwen2-1.5b's queue cut to one wave (4 requests, 32 new tokens each)
+DENSE_ARCHS, DENSE_LENS, DENSE_GEN = ("llama3.2-3b", "olmo-1b"), STEP_LENS, 32
 # bf16 outputs: one bf16 ulp at |out| < 4, where a float32 result (or a
 # score rounded through bf16) that differs in its last bit rounds the other way
 ATOL_BF16 = 2e-2
@@ -219,6 +261,7 @@ REL_F32 = 2e-3
 # ~1 with one, recurrentgemma). Under the init law alone an attention
 # layer adds ~1e2 a channel (``well_conditioned``), too much to damp.
 DAMP, DAMPED = 1e-3, ("wo", "w_down", "w_out")
+DAMPED_NORMS = ("post_norm1", "post_norm2")
 
 
 def fail(msg: str) -> None:
@@ -1074,9 +1117,13 @@ def check_paged_attn(g, dev) -> dict:
     slots, a 128-token prefill chunk of one slot, for qwen2-1.5b (12 query
     heads on 2 KV heads, D=128, no window, 36 pages a slot) and for
     recurrentgemma-2b's local layers (10 on 1, D=256, window 2,048, 162
-    pages a slot), all with 16-token pages; and at small shapes with a
-    window, a softcap, unassigned pages and an empty row. Then times at
-    the main shapes."""
+    pages a slot), all with 16-token pages; gemma2-2b's decode (8 on 4,
+    D=256, softcap 50, a local layer's window of 4,096 and a global
+    layer's none, 290 pages a slot); llama3.2-3b's (24 on 8) and olmo-1b's
+    (16 on 16) decode, D=128; and at small shapes with a window, a
+    softcap, unassigned pages and an empty row. Then times at the main
+    shapes, with the host time of a call and the device time of a launch
+    at gemma2's, llama3.2's and olmo's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attn.ops import (
@@ -1093,8 +1140,8 @@ def check_paged_attn(g, dev) -> dict:
     # a 2,048-token window, page rows as long as its whole-prefill queue's
     # (2,560 + 32 tokens); mid-decode past the window, and a 128-token
     # chunk ending at 2,560, where the window masks the first 512 keys
-    rg_whole = RECURRENT_RUNS["recurrentgemma-2b"]["lens"]["whole"]
-    rg_gen = RECURRENT_RUNS["recurrentgemma-2b"]["gen"]
+    rg_whole = SERVED_RUNS["recurrentgemma-2b"]["lens"]["whole"]
+    rg_gen = SERVED_RUNS["recurrentgemma-2b"]["gen"]
     rg = dict(Hq=10, Hkv=1, D=256, ps=16, window=2048, softcap=0.0,
               n=-(-(max(rg_whole) + rg_gen) // 16))
     rg_mid = [n + rg_gen // 2 for n in rg_whole]
@@ -1103,6 +1150,26 @@ def check_paged_attn(g, dev) -> dict:
         "rg_verify": dict(B=4, T=LM_SPEC_K + 1, lens=rg_mid, **rg),
         "rg_chunk": dict(B=1, T=LM_CHUNK, lens=[max(rg_whole)],
                          qpos_end=[max(rg_whole)], **rg)})
+    # gemma2-2b's decode, mid-way through its whole-prefill queue's new
+    # tokens: 8 query heads on 4 KV heads, D=256, the attention softcap
+    # of 50; a local layer (window 4,096) and a global one
+    g2_whole = SERVED_RUNS["gemma2-2b"]["lens"]["whole"]
+    g2_gen = SERVED_RUNS["gemma2-2b"]["gen"]
+    g2 = dict(Hq=8, Hkv=4, D=256, ps=16, softcap=50.0,
+              n=-(-(max(g2_whole) + g2_gen) // 16))
+    g2_mid = [n + g2_gen // 2 for n in g2_whole]
+    main.update({
+        "g2_decode_local": dict(B=4, T=1, lens=g2_mid, window=4096, **g2),
+        "g2_decode_global": dict(B=4, T=1, lens=g2_mid, window=0, **g2)})
+    # llama3.2-3b's (24 query heads on 8, G=3) and olmo-1b's (16 on 16,
+    # G=1: one query row of the kernel's 16-row tile a (b, h)) decode, D=128,
+    # mid-way through phase 9's queue
+    dense = dict(D=128, ps=16, window=0, softcap=0.0,
+                 n=-(-(max(DENSE_LENS) + DENSE_GEN) // 16))
+    dense_mid = [n + DENSE_GEN // 2 for n in DENSE_LENS]
+    main.update({
+        "l32_decode": dict(B=4, T=1, lens=dense_mid, Hq=24, Hkv=8, **dense),
+        "olmo_decode": dict(B=4, T=1, lens=dense_mid, Hq=16, Hkv=16, **dense)})
     small = [dict(B=3, T=7, Hq=4, Hkv=1, D=64, ps=4, n=6, lens=[13, 0, 9],
                   window=5, softcap=50.0),
              dict(B=2, T=3, Hq=8, Hkv=2, D=128, ps=16, n=3, lens=[20, 33],
@@ -1133,44 +1200,69 @@ def check_paged_attn(g, dev) -> dict:
 
     # times at the main shapes: kernel, plain version, and the library's
     # attention over K/V gathered beforehand with the same boolean mask
+    # (SDPA; with a softcap, which SDPA cannot take, flex_attention in
+    # bf16); with the host time of a call and the device time of a launch
+    # at gemma2's, llama3.2's and olmo's
     shapes = []
     for dtype in (torch.bfloat16, torch.float32):
         for name, c in main.items():
-            kw = dict(window=c["window"])
+            win = dict(window=c["window"])
+            kw = dict(win, softcap=c["softcap"])
             a = paged_inputs(g, dev, dtype, c["B"], c["T"], c["Hq"], c["Hkv"],
                              c["D"], c["ps"], c["n"], c["lens"],
                              c.get("qpos_end"))
-            ms = time_ms(lambda: paged_attention_fused(**a, **kw))
+            call = lambda: paged_attention_fused(**a, **kw)
+            ms = time_ms(call)
             plain_ms = time_ms(lambda: paged_attention_ref(**a, **kw),
                                iters=50)
-            gather_ms = time_ms(lambda: gathered_mask(a, **kw), iters=50)
-            k, v, mask = gathered_mask(a, **kw)
-            q = a["q"].transpose(1, 2)
-
-            def lib():
-                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                      enable_gqa=True)
-            lib_err = max_err(lib().transpose(1, 2).float(),
-                              paged_attention_fused(**a, **kw).float())
-            lib_ms = time_ms(lib)
+            gather_ms = lib_ms = lib_err = None
+            cap = c["softcap"]
+            if not cap or dtype == torch.bfloat16:
+                gather_ms = time_ms(lambda: gathered_mask(a, **win), iters=50)
+                k, v, mask = gathered_mask(a, **win)
+                q = a["q"].transpose(1, 2)
+                if cap:
+                    lib = flex_softcap(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), cap,
+                                       lambda b, h, qi, kj: mask[b, 0, qi, kj])
+                else:
+                    def lib():
+                        return F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=mask, enable_gqa=True)
+                lib_err = max_err(lib().transpose(1, 2).float(),
+                                  call().float())
+                lib_ms = time_ms(lib)
+            host = dev_us = None
+            if name.startswith(("g2_", "l32_", "olmo_")):
+                host = host_us(call)
+                dev_us = launch_device_us(call, "paged_attn", n=20)
             # bf16 inputs: the tensor cores' bf16 rate; fp32: the CUDA cores'
-            b_ms, b_by = bound_ms(*paged_work(a, **kw), BF16_OPS_PER_S
+            b_ms, b_by = bound_ms(*paged_work(a, **win), BF16_OPS_PER_S
                                   if dtype == torch.bfloat16 else FP32_OPS_PER_S)
             tag = str(dtype).split(".")[-1]
             pps, splits, blocks = grid_of(c["B"], c["T"], c["Hq"], c["Hkv"],
                                           c["n"], sm_count(dev.index))
             row = {"shape": name, "dtype": tag, "B": c["B"], "T": c["T"],
+                   "softcap": c["softcap"], "window": c["window"],
                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "gather_ms": gather_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "library_vs_kernel_err": lib_err,
+                   "library_vs_kernel_err": lib_err, "host_us": host,
+                   "device_us": dev_us,
                    "pages_per_split": pps, "splits": splits, "blocks": blocks}
             shapes.append(row)
+            lib_note = ("flex_attention timed in bf16 only" if lib_ms is None
+                        else f"{'flex_attention' if cap else 'sdpa'} "
+                        f"{lib_ms * 1e3:.2f} us (+ gather "
+                        f"{gather_ms * 1e3:.2f} us; agrees to {lib_err:.1e})")
+            host_note = "" if host is None else (
+                f"; host {host:.2f} us a call, device "
+                f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'}"
+                " a launch")
             print(f"  paged_attn {name} {tag}: kernel {ms * 1e3:.2f} us, plain "
-                  f"{plain_ms * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us "
-                  f"(+ gather {gather_ms * 1e3:.2f} us; agrees to "
-                  f"{lib_err:.1e}), bound {b_ms * 1e3:.3f} us ({b_by}); "
-                  f"{splits} split(s) of {pps} of {c['n']} pages, {blocks} "
-                  f"blocks{' + merge' if splits > 1 else ''}")
+                  f"{plain_ms * 1e3:.2f} us, {lib_note}, bound "
+                  f"{b_ms * 1e3:.3f} us ({b_by}); {splits} split(s) of {pps} "
+                  f"of {c['n']} pages, {blocks} blocks"
+                  f"{' + merge' if splits > 1 else ''}{host_note}")
     head = shapes[0]                       # bf16 decode, the most launched
     return {"name": "paged_attn", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
@@ -1183,7 +1275,8 @@ def check_paged_attn(g, dev) -> dict:
                      "rows, 34 pages assigned",
             "library": "torch.nn.functional.scaled_dot_product_attention "
                        "(enable_gqa) on K/V gathered beforehand, gather "
-                       "timed apart",
+                       "timed apart; with a softcap, flex_attention "
+                       "(torch.compile) with the cap as its score_mod",
             "by_shape": shapes}
 
 
@@ -1482,14 +1575,48 @@ def check_ssd_chunk(g, dev) -> dict:
             "by_shape": shapes}
 
 
+def band_mod(window, causal):
+    """Whether key ``kj`` is attendable from query ``qi`` in the band (the
+    signature of flex_attention's ``mask_mod``)."""
+    def mod(b, h, qi, kj):
+        delta = qi - kj
+        mask = delta < window
+        return mask & (delta >= 0) if causal else mask & (-delta < window)
+    return mod
+
+
 def band_mask(S, window, causal, dev):
     """(S, S) bool: key j attendable from query i."""
     import torch
     i = torch.arange(S, device=dev)[:, None]
     j = torch.arange(S, device=dev)[None, :]
-    delta = i - j
-    mask = delta < window
-    return mask & (delta >= 0) if causal else mask & (-delta < window)
+    return band_mod(window, causal)(None, None, i, j)
+
+
+_FLEX = {}
+
+
+def flex_softcap(q, k, v, cap, mask_mod):
+    """The library yardstick where SDPA takes no score modifier: one call
+    of ``torch.nn.attention.flex_attention``, compiled once a shape by
+    ``torch.compile`` into a fused kernel, with the softcap
+    ``cap * tanh(s / cap)`` as its ``score_mod`` (after the 1/sqrt(D)
+    scale, as the kernels apply it) and the keys of ``mask_mod`` as its
+    block mask. q (B, Hq, Tq, D), k and v (B, Hkv, L, D), GQA. Returns the
+    call, with its block mask built beforehand; it is timed and compared
+    only, the port never calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    if "fn" not in _FLEX:
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    if cap not in _FLEX:       # one score_mod a cap: no recompile for it
+        _FLEX[cap] = lambda s, b, h, qi, kj: cap * torch.tanh(s / cap)
+    fn, score_mod = _FLEX["fn"], _FLEX[cap]
+    block = create_block_mask(mask_mod, q.shape[0], None, q.shape[2],
+                              k.shape[2], device=q.device)
+    return lambda: fn(q, k, v, score_mod=score_mod, block_mask=block,
+                      enable_gqa=True)
 
 
 def local_work(B, S, Hq, Hkv, D, window, causal, esize) -> tuple[float, float]:
@@ -1500,69 +1627,123 @@ def local_work(B, S, Hq, Hkv, D, window, causal, esize) -> tuple[float, float]:
     return nbytes, 4.0 * B * Hq * pairs * D
 
 
+# Softcap cases: q scaled by LOCAL_CAP_Q_SCALE, so the scores spread ~4
+# and reach ~20, where gemma2's cap of 50 moves an output by up to ~0.15
+# (a spread of 1 leaves it within ~1e-2 of the uncapped one). Attention
+# that peaked makes an output nearly one entry of v, and unit-normal v
+# entries pass 4, where a bf16 ulp is 2^-5 > ATOL_BF16: two correct
+# roundings of a float32 result near a midpoint part by it. So v is
+# scaled by LOCAL_CAP_V_SCALE: every |out| stays under ~3, within
+# ATOL_BF16's premise of one bf16 ulp at |out| < 4.
+LOCAL_CAP_Q_SCALE, LOCAL_CAP_V_SCALE = 4.0, 0.5
+
+
 def check_local_attn(g, dev) -> dict:
     """The local-attention kernel against its plain version at
     recurrentgemma-2b's prefill shapes (10 query heads on 1 KV head,
     D=256, window 2,048; S=2,560 and S=600 < window) and ragged ones (S not
     a tile multiple, non-causal, Hkv = Hq, MQA, D=64 and 128), fp32 and
-    bf16; then times beside ``scaled_dot_product_attention`` with a boolean
-    band mask."""
+    bf16, with no softcap; then with gemma2-2b's softcap of 50 at its
+    prefill shapes (8 query heads on 4, D=256, window 4,096; S=4,608 past
+    the window and S=1,024) and a ragged S. Then times beside
+    ``scaled_dot_product_attention`` with a boolean band mask where there
+    is no softcap (SDPA takes no score modifier) and, with the softcap in
+    bf16, beside a compiled ``flex_attention`` with the cap as its
+    score_mod; with the host time of a call and the device time of a
+    launch."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.local_attn.ops import local_attention_fused
     from repro_torch.kernels.local_attn.ref import local_attention_ref
-    cases = [("rg_prefill_2560", 1, 2560, 10, 1, 256, 2048, True),
-             ("rg_prefill_600", 1, 600, 10, 1, 256, 2048, True),
-             ("ragged_gqa", 1, 77, 8, 2, 128, 33, True),
-             ("noncausal_mqa", 2, 77, 8, 1, 128, 33, False),
-             ("noncausal_nogroup", 2, 100, 4, 4, 64, 16, False),
-             ("window_ge_s", 1, 50, 4, 1, 64, 64, False)]
+    cases = [("rg_prefill_2560", 1, 2560, 10, 1, 256, 2048, True, 0.0),
+             ("rg_prefill_600", 1, 600, 10, 1, 256, 2048, True, 0.0),
+             ("ragged_gqa", 1, 77, 8, 2, 128, 33, True, 0.0),
+             ("noncausal_mqa", 2, 77, 8, 1, 128, 33, False, 0.0),
+             ("noncausal_nogroup", 2, 100, 4, 4, 64, 16, False, 0.0),
+             ("window_ge_s", 1, 50, 4, 1, 64, 64, False, 0.0),
+             ("g2_prefill_4608_cap", 1, 4608, 8, 4, 256, 4096, True, 50.0),
+             ("g2_prefill_1024_cap", 1, 1024, 8, 4, 256, 4096, True, 50.0),
+             ("ragged_gqa_cap", 2, 77, 8, 2, 128, 33, True, 50.0),
+             ("noncausal_mqa_cap", 2, 77, 8, 1, 64, 33, False, 50.0)]
+
+    def inputs(B, S, Hq, Hkv, D, cap, dtype):
+        qs, vs = (LOCAL_CAP_Q_SCALE, LOCAL_CAP_V_SCALE) if cap else (1.0, 1.0)
+        return dict(q=rn(g, dev, B, S, Hq, D, s=qs).to(dtype),
+                    k=rn(g, dev, B, S, Hkv, D).to(dtype),
+                    v=rn(g, dev, B, S, Hkv, D, s=vs).to(dtype))
     err = {"float32": 0.0, "bfloat16": 0.0}
     for dtype, atol in ((torch.float32, ATOL_KERNEL),
                         (torch.bfloat16, ATOL_BF16)):
         tag = str(dtype).split(".")[-1]
-        for name, B, S, Hq, Hkv, D, window, causal in cases:
-            a = dict(q=rn(g, dev, B, S, Hq, D).to(dtype),
-                     k=rn(g, dev, B, S, Hkv, D).to(dtype),
-                     v=rn(g, dev, B, S, Hkv, D).to(dtype))
-            out = local_attention_fused(**a, window=window, causal=causal)
+        for name, B, S, Hq, Hkv, D, window, causal, cap in cases:
+            a = inputs(B, S, Hq, Hkv, D, cap, dtype)
+            kw = dict(window=window, causal=causal, softcap=cap)
+            out = local_attention_fused(**a, **kw)
             torch.cuda.synchronize()
-            ref = local_attention_ref(**a, window=window, causal=causal)
+            ref = local_attention_ref(**a, **kw)
             err[tag] = max(err[tag], check_kernel_case(
                 "local_attn", f"{name} {tag} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-                f"window={window} causal={causal}", out, ref, atol))
+                f"window={window} causal={causal} softcap={cap}", out, ref,
+                atol))
+            if cap:
+                moved = max_err(ref.float(), local_attention_ref(
+                    **a, window=window, causal=causal).float())
+                print(f"    the softcap moves the plain output by {moved:.3e}")
     shapes = []
-    for name, B, S, Hq, Hkv, D, window, causal in cases[:2]:
+    timed = [c for c in cases if c[0].startswith(("rg_", "g2_"))]
+    for name, B, S, Hq, Hkv, D, window, causal, cap in timed:
         for dtype in (torch.bfloat16, torch.float32):
-            a = dict(q=rn(g, dev, B, S, Hq, D).to(dtype),
-                     k=rn(g, dev, B, S, Hkv, D).to(dtype),
-                     v=rn(g, dev, B, S, Hkv, D).to(dtype))
-            kw = dict(window=window, causal=causal)
-            ms = time_ms(lambda: local_attention_fused(**a, **kw), iters=20,
-                         warmup=3)
+            a = inputs(B, S, Hq, Hkv, D, cap, dtype)
+            kw = dict(window=window, causal=causal, softcap=cap)
+            call = lambda: local_attention_fused(**a, **kw)
+            ms = time_ms(call, iters=20, warmup=3)
             plain_ms = time_ms(lambda: local_attention_ref(**a, **kw),
                                iters=5, warmup=1)
-            q, k, v = (t.transpose(1, 2) for t in (a["q"], a["k"], a["v"]))
-            mask = band_mask(S, window, causal, dev)
-            lib = lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True)
-            lib_ms = time_ms(lib, iters=20, warmup=3)
-            lib_err = max_err(lib().transpose(1, 2).float(),
-                              local_attention_fused(**a, **kw).float())
+            host = host_us(call, calls=20, repeats=3)
+            dev_us = launch_device_us(call, "local_attn", n=10)
             b_ms, b_by = bound_ms(*local_work(B, S, Hq, Hkv, D, window,
                                               causal, a["q"].element_size()),
                                   BF16_OPS_PER_S if dtype == torch.bfloat16
                                   else FP32_OPS_PER_S)
             tag = str(dtype).split(".")[-1]
-            shapes.append({"shape": name, "dtype": tag, "S": S, "ms": ms,
-                           "plain_ms": plain_ms, "library_ms": lib_ms,
-                           "bound_ms": b_ms, "bound_by": b_by,
-                           "library_vs_kernel_err": lib_err})
-            print(f"  local_attn {name} {tag}: kernel {ms * 1e3:.2f} us, plain "
-                  f"{plain_ms * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us "
-                  f"(agrees to {lib_err:.1e}), bound {b_ms * 1e3:.3f} us "
-                  f"({b_by})")
-    head = shapes[0]                       # bf16, the longest prompt
+            row = {"shape": name, "dtype": tag, "S": S, "Hq": Hq, "Hkv": Hkv,
+                   "softcap": cap, "ms": ms, "plain_ms": plain_ms,
+                   "host_us": host, "device_us": dev_us, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None}
+            lib_note = "flex_attention timed in bf16 only"
+            if cap:
+                # the same shape without the cap, in turns with it
+                off = dict(kw, softcap=0.0)
+                row["ms"], row["no_softcap_ms"] = time_in_turns(
+                    [call, lambda: local_attention_fused(**a, **off)],
+                    rounds=3, iters=20)
+                ms = row["ms"]
+            if not cap or dtype == torch.bfloat16:
+                q, k, v = (t.transpose(1, 2).contiguous()
+                           for t in (a["q"], a["k"], a["v"]))
+                if cap:
+                    lib = flex_softcap(q, k, v, cap, band_mod(window, causal))
+                    what = "flex_attention"
+                else:
+                    mask = band_mask(S, window, causal, dev)
+                    lib = lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, enable_gqa=True)
+                    what = "sdpa"
+                row["library_ms"] = time_ms(lib, iters=20, warmup=3)
+                row["library_vs_kernel_err"] = max_err(
+                    lib().transpose(1, 2).float(), call().float())
+                lib_note = (f"{what} {row['library_ms'] * 1e3:.2f} us (agrees "
+                            f"to {row['library_vs_kernel_err']:.1e})")
+            shapes.append(row)
+            extra = (f", without the cap {row['no_softcap_ms'] * 1e3:.2f} us"
+                     if cap else "")
+            print(f"  local_attn {name} {tag}: kernel {ms * 1e3:.2f} us{extra}, "
+                  f"plain {plain_ms * 1e3:.2f} us, {lib_note}, bound "
+                  f"{b_ms * 1e3:.3f} us ({b_by}); host {host:.2f} us a call, "
+                  f"device {'not measured' if dev_us is None else f'{dev_us:.2f} us'}"
+                  " a launch")
+    head = next(r for r in shapes if r["shape"] == "g2_prefill_4608_cap"
+                and r["dtype"] == "bfloat16")
     return {"name": "local_attn", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/local_attn.cu",
             "replaces": "src/repro/kernels/local_attn/kernel.py:26",
@@ -1570,10 +1751,12 @@ def check_local_attn(g, dev) -> dict:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "shape": "bf16 recurrentgemma-2b prefill layer: B=1 S=2560 "
-                     "Hq=10 Hkv=1 D=256 window=2048 causal",
-            "library": "torch.nn.functional.scaled_dot_product_attention "
-                       "(enable_gqa) with a boolean band mask",
+            "shape": "bf16 gemma2-2b prefill layer: B=1 S=4608 Hq=8 Hkv=4 "
+                     "D=256 window=4096 causal softcap=50",
+            "library": "flex_attention (torch.compile, enable_gqa) with the "
+                       "softcap as its score_mod and the band as its block "
+                       "mask; SDPA with a boolean band mask at the shapes "
+                       "without a softcap, in by_shape",
             "by_shape": shapes}
 
 
@@ -1778,14 +1961,17 @@ def well_conditioned(cfg, params):
 def damped(cfg, params):
     """The params rescaled as ``well_conditioned`` does, then with every
     layer's output projection (``wo``, ``w_down``, ``w_out``) scaled by
-    DAMP: the residual stream then carries the token's embedding almost
+    DAMP, and so the scale of each sandwich norm after them (gemma2's
+    ``post_norm1/post_norm2``, which would otherwise normalise the damping
+    away): the residual stream then carries the token's embedding almost
     alone, and with tied embeddings the greedy model repeats its last
     token. The n-gram drafter's drafts are then accepted, so a verify step
     keeps some and rolls the rest back. The speculative mode runs on
     these."""
-    def walk(t):
-        return {k: v * DAMP if k in DAMPED else
-                walk(v) if isinstance(v, dict) else v for k, v in t.items()}
+    def walk(t, damp=False):
+        return {k: v * DAMP if damp or k in DAMPED else
+                walk(v, k in DAMPED_NORMS) if isinstance(v, dict) else v
+                for k, v in t.items()}
     well = well_conditioned(cfg, params)
     return dict(well, layers=[walk(lp) for lp in well["layers"]])
 
@@ -1997,53 +2183,87 @@ def lm_main_path(dev) -> dict:
             "profile": runs["whole"]["profile"]}
 
 
-# What each served mode of a recurrent model must launch (> 0) and must not
-# (== 0): the Dom-ST kernels never; ssd_chunk only in a mamba2 whole-prompt
-# prefill, local_attn only in a recurrentgemma one — which the spec mode
-# runs too, since it admits each prompt whole — and neither with 128-token
-# chunks; paged_attn never in mamba2 (no attention layer).
-RECURRENT_LAUNCHES = {
+# What each served mode of a model must launch (> 0) and must not (== 0):
+# the Dom-ST kernels never; ssd_chunk only in a mamba2 whole-prompt
+# prefill, local_attn only in a recurrentgemma or gemma2 one — which the
+# spec mode runs too, since it admits each prompt whole — and neither with
+# 128-token chunks; paged_attn never in mamba2 (no attention layer). A
+# whole-prompt prefill launches local_attn once a local layer a request
+# (``local_launches``).
+_DOMST = {"pixcon", "lstm_cell"}
+SERVED_LAUNCHES = {
     "recurrentgemma-2b": {
         "whole": ({"local_attn", "conv1d", "paged_attn"},
-                  {"ssd_chunk", "pixcon", "lstm_cell"}),
+                  {"ssd_chunk"} | _DOMST),
         "chunked": ({"conv1d", "paged_attn"},
-                    {"local_attn", "ssd_chunk", "pixcon", "lstm_cell"}),
+                    {"local_attn", "ssd_chunk"} | _DOMST),
         "spec": ({"local_attn", "conv1d", "paged_attn"},
-                 {"ssd_chunk", "pixcon", "lstm_cell"})},
+                 {"ssd_chunk"} | _DOMST)},
     "mamba2-130m": {
         "whole": ({"ssd_chunk", "conv1d"},
-                  {"paged_attn", "local_attn", "pixcon", "lstm_cell"}),
+                  {"paged_attn", "local_attn"} | _DOMST),
         "chunked": ({"conv1d"},
-                    {"paged_attn", "local_attn", "ssd_chunk", "pixcon",
-                     "lstm_cell"}),
+                    {"paged_attn", "local_attn", "ssd_chunk"} | _DOMST),
         "spec": ({"ssd_chunk", "conv1d"},
-                 {"paged_attn", "local_attn", "pixcon", "lstm_cell"})},
+                 {"paged_attn", "local_attn"} | _DOMST)},
+    "gemma2-2b": {
+        "whole": ({"local_attn", "paged_attn"},
+                  {"conv1d", "ssd_chunk"} | _DOMST),
+        "chunked": ({"paged_attn"},
+                    {"local_attn", "conv1d", "ssd_chunk"} | _DOMST),
+        "spec": ({"local_attn", "paged_attn"},
+                 {"conv1d", "ssd_chunk"} | _DOMST)},
 }
 
 
-def recurrent_main_path(arch: str, dev) -> dict:
-    """``arch`` (recurrentgemma-2b or mamba2-130m) at full width, random
-    weights from the port's init (seed 0), served through the port's
-    Scheduler in bf16 in three modes, each with the launch counts set to 0
-    just before and read just after, the whole-prefill mode profiled once.
-    The speculative mode runs on the damped weights, so that drafts are
-    accepted and verify rolls the recurrent state back. Then the kernels
-    against their plain versions end to end: one bf16 decode step's logits
-    on the admitted state, every launch of one fp32 served run per mode
-    side by side with the plain versions, and the fp32 greedy streams in
-    every mode, kernels against plain versions."""
+def local_launches(cfg, name: str, reqs: list) -> int:
+    """local_attn launches a served run must make: one a local layer a
+    request where prompts are admitted whole, none with chunks."""
+    from repro_torch.configs import ATTN_LOCAL
+    if name == "chunked":
+        return 0
+    return sum(k == ATTN_LOCAL for k in cfg.layer_kinds()) * len(reqs)
+
+
+def init_params(cfg, dev, dtype=None):
+    """The port's init of ``cfg`` on the card from LM_SEED, in float32 or
+    cast (``cast_params``) to ``dtype``, with the float32 tree freed."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    p32 = tfm.init(cfg, torch.Generator(device=dev).manual_seed(LM_SEED))
+    if dtype is None:
+        return p32
+    out = tfm.cast_params(p32, dtype, dev)
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def served_main_path(arch: str, dev) -> dict:
+    """``arch`` (recurrentgemma-2b, mamba2-130m or gemma2-2b) at full
+    width, random weights from the port's init (seed 0), served through
+    the port's Scheduler in bf16 in three modes, each with the launch
+    counts set to 0 just before and read just after, the whole-prefill
+    mode profiled once. The speculative mode runs on the damped weights,
+    so that drafts are accepted and verify rolls recurrent state back.
+    Then the kernels against their plain versions end to end: one bf16
+    decode step's logits on the admitted state, every launch of one fp32
+    served run per mode side by side with the plain versions, and the fp32
+    greedy streams in every mode, kernels against plain versions. The
+    bf16 weights are cast from a float32 init that is freed at once; the
+    fp32 checks draw the same init again."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
-    spec = RECURRENT_RUNS[arch]
+    spec = SERVED_RUNS[arch]
     cfg = get_config(arch)
     t0 = time.perf_counter()
-    p32 = tfm.init(cfg, torch.Generator(device=dev).manual_seed(LM_SEED))
-    pbf = tfm.cast_params(p32, torch.bfloat16, dev)
+    pbf = init_params(cfg, dev, torch.bfloat16)
     torch.cuda.synchronize()
-    nparams = sum(t.numel() for t in _leaves(p32))
+    nparams = sum(t.numel() for t in _leaves(pbf))
     print(f"  {arch} params: {nparams / 1e9:.3f} B, {cfg.num_layers} layers, "
-          f"init {time.perf_counter() - t0:.1f} s")
+          f"d {cfg.d_model}, vocab {cfg.vocab_size}, init "
+          f"{time.perf_counter() - t0:.1f} s")
     def queue(name):            # a fresh queue: the scheduler consumes it
         return requests_of(cfg.vocab_size, spec["lens"][name], spec["gen"])
     modes = {"whole": {}, "chunked": {"prefill_chunk": LM_CHUNK},
@@ -2061,12 +2281,16 @@ def recurrent_main_path(arch: str, dev) -> dict:
                        torch.bfloat16, mode, reqs, profile_reqs=prof)
         check_tokens(cfg, name, r, queue(name))
         check_spec(arch, name, r)
-        need, never = RECURRENT_LAUNCHES[arch][name]
+        need, never = SERVED_LAUNCHES[arch][name]
         for k in need:
             check(r["launches"][k] > 0, f"{arch} {name}: {k} not launched")
         for k in never:
             check(r["launches"][k] == 0,
                   f"{arch} {name}: {k} launched {r['launches'][k]} times")
+        local = local_launches(cfg, name, reqs)
+        check(r["launches"]["local_attn"] == local,
+              f"{arch} {name}: local_attn launched "
+              f"{r['launches']['local_attn']} times, not {local}")
         runs[name] = r
         print_run(arch, name, r)
     if spec["lens"]["chunked"] == spec["lens"]["whole"]:
@@ -2082,9 +2306,11 @@ def recurrent_main_path(arch: str, dev) -> dict:
           f"argmax equal {bf['argmax_equal']}")
     check(rel <= REL_LOGITS_BF16, f"{arch} bf16 decode logits differ by {rel}")
     del pbf
+    torch.cuda.empty_cache()
 
     # fp32: every launch of one served run per mode held against the plain
     # versions on the same inputs, on the weights of that mode's bf16 run
+    p32 = init_params(cfg, dev)
     d32 = damped(cfg, p32)
     f32 = {"checked": {}, "streams": {}}
     for name, mode in modes.items():
@@ -2103,7 +2329,7 @@ def recurrent_main_path(arch: str, dev) -> dict:
             check(c["max_rel_err"] <= REL_F32,
                   f"{arch} {name} fp32 {k}: kernel differs from plain by "
                   f"{c['max_rel_err']}")
-        for k in RECURRENT_LAUNCHES[arch][name][0]:
+        for k in SERVED_LAUNCHES[arch][name][0]:
             check(rows[k]["launches"] > 0, f"{arch} {name} fp32: {k} never "
                   "checked")
     stamp(f"{arch} fp32 per-launch checks done")
@@ -2147,6 +2373,76 @@ def recurrent_main_path(arch: str, dev) -> dict:
             "profile": runs["whole"]["profile"]}
 
 
+def dense_main_path(arch: str, dev) -> dict:
+    """``arch`` (llama3.2-3b or olmo-1b) at full width, random weights from
+    the port's init (seed 0), served in bf16 by whole-prompt prefill with
+    the launch counts set to 0 just before and read just after
+    (paged_attn > 0, every other kernel 0); then one bf16 decode step's
+    logits, kernel against plain, on the admitted state. Under the init
+    law these two models are chaotic in bf16: one decode step's logits,
+    plain on the card against plain on the CPU, part by more than the
+    largest logit (printed, with the kernel's), so the check within
+    2^-5 runs on the weights with the attention projections rescaled to
+    unit variance (``well_conditioned``), where two correct runs agree.
+    Last, every launch of an fp32 whole-prefill run, on the main path's
+    weights drawn again in float32, held against the plain version."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    pbf = init_params(cfg, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _leaves(pbf))
+    print(f"  {arch} params: {nparams / 1e9:.3f} B, {cfg.num_layers} layers, "
+          f"d {cfg.d_model}, {cfg.num_heads} heads on {cfg.num_kv_heads}, "
+          f"vocab {cfg.vocab_size}, init {time.perf_counter() - t0:.1f} s")
+    reqs = lambda: requests_of(cfg.vocab_size, DENSE_LENS, DENSE_GEN)
+    serve_once(cfg, dev, pbf, torch.bfloat16, {}, reqs()[:2])   # warm-up
+    r = serve_once(cfg, dev, pbf, torch.bfloat16, {}, reqs())
+    check_tokens(cfg, "whole", r, reqs())
+    check(r["launches"]["paged_attn"] > 0, f"{arch}: paged_attn not launched")
+    check(all(v == 0 for k, v in r["launches"].items() if k != "paged_attn"),
+          f"{arch}: a kernel of another path ran: {r['launches']}")
+    print_run(arch, "whole", r)
+    logits = {}
+    for tag, p in (("main weights", pbf),
+                   ("rescaled weights", well_conditioned(cfg, pbf))):
+        bf = decode_logits_check(cfg, dev, p, torch.bfloat16, reqs(),
+                                 cpu_control=True)
+        logits[tag] = bf
+        print(f"  {arch} bf16 decode_step_paged logits, {tag}: kernel vs "
+              f"plain {bf['rel_err']:.3e}, plain on the card vs on the CPU "
+              f"{bf['cpu_rel_err']:.3e} of the largest |logit| (tolerance "
+              f"{REL_LOGITS_BF16} on the rescaled weights); argmax equal "
+              f"{bf['argmax_equal']}, card/CPU {bf['cpu_argmax_equal']}")
+    rel = logits["rescaled weights"]["rel_err"]
+    check(rel <= REL_LOGITS_BF16, f"{arch} bf16 decode logits differ by {rel}")
+    del pbf
+    torch.cuda.empty_cache()
+
+    # fp32: every launch of one whole-prefill run held against the plain
+    # version on the same inputs, on the main path's weights
+    p32 = init_params(cfg, dev)
+    ops = checked_ops()
+    serve_once(cfg, dev, p32, torch.float32, {}, reqs(), ops=ops)
+    checked = {k: {"launches": c.calls, "max_rel_err": c.max_rel}
+               for k, c in zip(tfm.KernelOps._fields, ops) if c.calls}
+    for k, c in checked.items():
+        print(f"  {arch} whole fp32, {k}: {c['launches']} launches held "
+              f"against the plain version, max error {c['max_rel_err']:.3e} "
+              f"of the output's largest |value| (tolerance {REL_F32})")
+        check(c["max_rel_err"] <= REL_F32, f"{arch} whole fp32 {k}: kernel "
+              f"differs from plain by {c['max_rel_err']}")
+    check("paged_attn" in checked, f"{arch} whole fp32: paged_attn never "
+          "checked")
+    del p32
+    torch.cuda.empty_cache()
+    print("  " + json.dumps({arch: run_summary({"whole": r}),
+                             "bf16_logits": logits, "fp32": checked}))
+    return {"launches": {"whole": r["launches"]}, "profile": None}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2159,10 +2455,12 @@ def _leaves(tree):
 
 
 # instantiations that must not spill, by library: a part of the mangled
-# name ptxas reports; the two attention kernels at bf16, D=256, and every
-# instantiation of the SSD chunk's bf16 kernel (one per k-step count)
+# name ptxas reports; the two attention kernels at bf16, D=256 (local
+# attention without and with the softcap), and every instantiation of the
+# SSD chunk's bf16 kernel (one per k-step count)
 BF16_D256 = "I13__nv_bfloat16Li256E"      # template arguments <bf16, 256, ...>
-NO_SPILL = {"local_attn": ("local_attn_mma_kernel" + BF16_D256,),
+NO_SPILL = {"local_attn": tuple("local_attn_mma_kernel" + BF16_D256 + cap
+                               for cap in ("Lb0E", "Lb1E")),
             "paged_attn": ("paged_attn_kernel" + BF16_D256,
                            "paged_attn_merge_kernel" + BF16_D256),
             "ssd_chunk": ("ssd_chunk_mma_kernel",)}
@@ -2198,6 +2496,11 @@ def check_spills(libs: dict) -> None:
 
 
 def main() -> int:
+    # torch.compile's caches inside the checkout, and no compile workers
+    for var, path in (("TORCHINDUCTOR_CACHE_DIR", "build/inductor"),
+                      ("TRITON_CACHE_DIR", "build/triton")):
+        os.environ.setdefault(var, str(ROOT / path))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
     try:
         import torch
     except ImportError:
@@ -2248,9 +2551,13 @@ def main() -> int:
     by_model = {}
     print(f"[5] main path: paged LM serving, qwen2-1.5b, 8 requests x 64 tokens (at {time.perf_counter() - T_START:.0f} s)")
     by_model["qwen2-1.5b"] = lm_main_path(dev)
-    for n, arch in ((6, "recurrentgemma-2b"), (7, "mamba2-130m")):
+    for n, arch in ((6, "recurrentgemma-2b"), (7, "mamba2-130m"),
+                    (8, "gemma2-2b")):
         print(f"[{n}] main path: paged serving, {arch} (at {time.perf_counter() - T_START:.0f} s)")
-        by_model[arch] = recurrent_main_path(arch, dev)
+        by_model[arch] = served_main_path(arch, dev)
+    for arch in DENSE_ARCHS:
+        print(f"[9] main path: paged serving, {arch}, whole prefill (at {time.perf_counter() - T_START:.0f} s)")
+        by_model[arch] = dense_main_path(arch, dev)
     for res in by_model.values():
         for counts in res["launches"].values():
             for name, c in counts.items():
@@ -2271,8 +2578,9 @@ def main() -> int:
             if any(c[k["name"]] for c in res["launches"].values())}
         k["device_ms_per_launch_on_main_path"] = {
             arch: device_ms_per_launch(res["profile"]).get(k["name"])
-            for arch, res in by_model.items() if arch in k["launches_by_mode"]}
-    print(f"[8] all phases passed in {time.perf_counter() - T_START:.1f} s")
+            for arch, res in by_model.items()
+            if arch in k["launches_by_mode"] and res["profile"]}
+    print(f"[10] all phases passed in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the host time of a conv1d, LSTM-step, Pix-Con and SSD-chunk
-wrapper call goes, on one NVIDIA GPU.
+"""Where the host time of a conv1d, LSTM-step, Pix-Con, SSD-chunk,
+local-attention and paged-attention wrapper call goes, on one NVIDIA GPU.
 
     python3 scripts/wrapper_host_time.py [SRC]
 
@@ -9,8 +9,14 @@ this checkout's), at mamba2-130m's 4-slot decode step (``causal_conv1d``,
 bf16, B=4, S=1, C=1,792, K=4, SiLU, with a tail), at the Dom-ST
 forecast's first LSTM layer (``lstm_cell_fused``, R=23, B=1, D=128,
 H=64), at the forecast's Pix-Con gate (``pixcon_gate``, R=23, B=1, T=30,
-P=64, F=4, Hp=32) and at mamba2-130m's 512-token prefill layer
-(``ssd_chunk_fused``, bf16, B=1, nc=2, Q=256, H=24, N=128, P=64). One
+P=64, F=4, Hp=32), at mamba2-130m's 512-token prefill layer
+(``ssd_chunk_fused``, bf16, B=1, nc=2, Q=256, H=24, N=128, P=64), and
+at gemma2-2b's head shapes (8 query heads on 4, D=256, bf16) cut short,
+so that the card finishes each launch before the host issues the next:
+``local_attention_fused`` over a 64-token prompt (window 4,096; the
+tree's default softcap, which the wrappers before the softcap lack) and
+``paged_attention_fused`` at a 4-slot decode step over 4 pages a slot
+(softcap 50). One
 call runs with each piece of the wrapper's host path recorded,
 found by the name the wrapper calls it through: the input checks, the
 output allocations, getting the current stream, the launch plan, the new
@@ -61,12 +67,12 @@ def host_breakdown(ops, call, host_us) -> dict:
     module ``ops`` on fixed inputs, goes, in microseconds."""
     import torch
     names = {"checks": [(ops, "check_activations"), (ops, "check_inputs"),
-                        (ops, "_check")],
+                        (ops, "_check"), (ops, "_fits")],
              "alloc": [(torch, "empty_like"), (torch, "empty"),
                        (torch.Tensor, "new_empty")],
              "stream": [(torch.cuda, "current_stream"), (ops, "stream_handle")],
              "plan": [(ops, "plan_conv"), (ops, "plan_lstm"), (ops, "plan_ssd"),
-                      (ops, "sm_count")],
+                      (ops, "sm_count"), (ops, "grid_of")],
              "new_tail": [(ops, "new_tail")]}
     seen = {label: [] for label in names}
     launches = []
@@ -132,10 +138,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))              # chip_smoke's timing helpers
     sys.path.insert(0, str(src))
-    from chip_smoke import (conv_args, host_us, lstm_inputs, pixcon_inputs,
-                            ssd_inputs)
+    from chip_smoke import (conv_args, host_us, lstm_inputs, paged_inputs,
+                            pixcon_inputs, ssd_inputs)
     from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.kernels.local_attn import ops as local_ops
     from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.kernels.paged_attn import ops as paged_ops
     from repro_torch.kernels.pixcon import ops as pixcon_ops
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 
@@ -147,6 +155,10 @@ def main() -> int:
     lstm = lstm_inputs(g, dev, 23, 1, 128, 64)
     pix = pixcon_inputs(g, dev, 23, 1, 30, 64)
     ssd = ssd_inputs(g, dev, torch.bfloat16, 1, 2, 256, 24, 128, 64)
+    local = {n: torch.randn(1, 64, h, 256, generator=g).to(dev, torch.bfloat16)
+             for n, h in (("q", 8), ("k", 4), ("v", 4))}
+    paged = paged_inputs(g, dev, torch.bfloat16, 4, 1, 8, 4, 256, 16, 4,
+                         [60, 58, 56, 54])
     out = {"src": str(src), "card": torch.cuda.get_device_name(0),
            "conv1d_mamba2_decode": host_breakdown(
                conv_ops, lambda: conv_ops.causal_conv1d(**conv, activation="silu"),
@@ -156,7 +168,13 @@ def main() -> int:
            "pixcon_forecast": host_breakdown(
                pixcon_ops, lambda: pixcon_ops.pixcon_gate(**pix), timed),
            "ssd_chunk_mamba2_prefill": host_breakdown(
-               ssd_ops, lambda: ssd_ops.ssd_chunk_fused(**ssd), timed)}
+               ssd_ops, lambda: ssd_ops.ssd_chunk_fused(**ssd), timed),
+           "local_attn_gemma2_heads": host_breakdown(
+               local_ops, lambda: local_ops.local_attention_fused(
+                   **local, window=4096), timed),
+           "paged_attn_gemma2_decode": host_breakdown(
+               paged_ops, lambda: paged_ops.paged_attention_fused(
+                   **paged, softcap=50.0), timed)}
     if hasattr(lstm_ops, "LstmCell"):
         out["function_route"] = {
             "lstm_cell_layer0": route_cost(

@@ -29,12 +29,6 @@ SOURCES = ("pixcon", "lstm_cell", "paged_attn", "conv1d", "ssd_chunk",
 # tolerances, and expf/tanhf must stay the accurate library functions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Libraries whose calls keep the GIL rather than release and take it
-# again: launch functions that return at once, on the paths where a
-# wrapper's host time is most of a call (the LSTM step and the conv1d of
-# every recurrent layer, run thousands of times a forward; Pix-Con, once
-# a forecast day; the SSD chunk, once a Mamba-2 prefill layer).
-KEEP_GIL = ("conv1d", "lstm_cell", "pixcon", "ssd_chunk")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -90,12 +84,13 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed;
-    those in ``KEEP_GIL`` as a ``PyDLL``."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed, as
+    a ``PyDLL``: its calls keep the GIL rather than release and take it
+    again, since every launch function returns at once and on the served
+    and forecast paths a wrapper's host time is most of a call."""
     lib = _LIBS.get(name)
     if lib is None:
-        kind = ctypes.PyDLL if name in KEEP_GIL else ctypes.CDLL
-        lib = kind(str(build((name,))[name]))
+        lib = ctypes.PyDLL(str(build((name,))[name]))
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

@@ -4,6 +4,7 @@
 // (local_attention_pallas). For batch b, query head h (KV head h / G) and
 // query i of q (B,S,Hq,D) against k, v (B,S,Hkv,D):
 //   s_ij = dot(q_i, k_j) / sqrt(D)                  (float32, a division)
+//   with a softcap c > 0: s_ij = c * tanh(s_ij / c)  (before the mask)
 //   key j attendable iff 0 <= j < S, i - j < window and
 //        causal: i - j >= 0;  non-causal: j - i < window
 //   masked s_ij = -1e30; online softmax over key tiles: m, l, acc with
@@ -60,8 +61,22 @@
 // D=256 the block uses ~143 KB of shared memory (set with
 // cudaFuncAttributeMaxDynamicSharedMemorySize).
 //
-// D (64, 128, 256) is a template parameter of both. No fast math: expf
-// and IEEE division.
+// Softcap (gemma2's attention softcap, which the reference's model code
+// applies in local_attention and the Pallas kernel lacks): s = c *
+// tanhf(s / c) on the float32 score, after the division and before the
+// mask. It is a template parameter (CAP) of both kernels, so the
+// instantiations without it compile to what they were before, to the
+// bit; with it, the bf16 kernel takes the tanh in place on the score
+// registers (no second score array). At gemma2-2b's longest prefill
+// (S=4,608, window 4,096, 8 on 4 heads, D=256) that is one tanhf a
+// (query, key) pair, ~84 M a launch, on the special-function units,
+// beside ~86 GFLOP on the tensor cores.
+//
+// D (64, 128, 256) and CAP are template parameters of both. No fast
+// math: expf, tanhf and IEEE division.
+#include <cstdint>
+#include <cstring>
+
 #include "common.cuh"
 #include "tile.cuh"
 
@@ -90,11 +105,11 @@ constexpr size_t smem_bytes() {
 }
 
 // q, out (B,S,Hq,D); k, v (B,S,Hkv,D). Grid (ceil(S/64), Hq, B).
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ out, int S,
-                  int Hq, int Hkv, int window, int causal) {
+                  int Hq, int Hkv, int window, int causal, float cap) {
   constexpr int LD = D + 1, LS = kBK + 1, DPT = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;                         // [64][D+1]
@@ -163,7 +178,9 @@ local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int cj = tx + 16 * c, j = j0 + cj, delta = i - j;
         const bool ok = j >= 0 && j < S && delta < window &&
                         (causal ? delta >= 0 : -delta < window);
-        Ps[ri * LS + cj] = ok ? s[r][c] / sqrt_d : kNegInf;
+        float x = s[r][c] / sqrt_d;
+        if constexpr (CAP) x = cap * tanhf(x / cap);
+        Ps[ri * LS + cj] = ok ? x : kNegInf;
         Ok[ri * LS + cj] = ok;
       }
     }
@@ -237,11 +254,11 @@ __host__ __device__ constexpr size_t mma_smem_bytes() {
 
 // q, out (B,S,Hq,D); k, v (B,S,Hkv,D), bf16. Grid (Hq, B, ceil(S/64)),
 // 128 threads.
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(kMmaWarps * 32, 2)
 local_attn_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out, int S,
-                      int Hq, int Hkv, int window, int causal) {
+                      int Hq, int Hkv, int window, int causal, float cap) {
   static_assert(sizeof(T) == 2, "bf16 only");
   constexpr int BK = mma_bk<D>(), LD = mma_pitch<D>(), CH = D / 8;
   constexpr int NB = BK / 8;          // 16x8 score tiles a warp per key tile
@@ -335,7 +352,7 @@ local_attn_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // scale, and mask where the tile crosses the warp's band edge or S
+    // scale, cap, and mask where the tile crosses the warp's band edge or S
     const bool inside = j0 + BK - 1 < S && iw0 + 15 - j0 < window &&
                         (causal ? iw0 - (j0 + BK - 1) >= 0
                                 : j0 + BK - 1 - iw0 < window);
@@ -345,6 +362,7 @@ local_attn_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[nb][e] / kSqrtD;
+        if constexpr (CAP) x = cap * tanhf(x / cap);
         if (!inside) {
           const int i = iw0 + g + (e >> 1) * 8, j = j0 + nb * 8 + 2 * c4 + (e & 1);
           const int delta = i - j;
@@ -431,79 +449,101 @@ local_attn_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The launch's arguments: the kernel's (with the softcap's instantiation
+// taken where cap > 0) and the launch's own.
+struct Launch {
+  const void *q, *k, *v;
+  void* out;
+  int B, S, Hq, Hkv, window, causal;
+  float cap;
+  cudaStream_t stream;
+};
+
+template <typename T, typename K>
+cudaError_t run(K kernel, size_t smem, dim3 grid, int threads, const Launch& a) {
+  const cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.S, a.Hq, a.Hkv,
+      a.window, a.causal, a.cap);
+  return cudaGetLastError();
+}
+
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
-                       int B, int S, int Hq, int Hkv, int window, int causal,
-                       cudaStream_t stream) {
+cudaError_t launch_mma(const Launch& a) {
   using T = __nv_bfloat16;
-  auto kernel = local_attn_mma_kernel<T, D>;
+  const dim3 grid(a.Hq, a.B, (a.S + kBQ - 1) / kBQ);
   const size_t smem = mma_smem_bytes<D>();
-  const cudaError_t err = repro::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(Hq, B, (S + kBQ - 1) / kBQ);
-  kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, Hq, Hkv, window,
-      causal);
-  return cudaGetLastError();
+  return a.cap > 0.f
+      ? run<T>(local_attn_mma_kernel<T, D, true>, smem, grid, kMmaWarps * 32, a)
+      : run<T>(local_attn_mma_kernel<T, D, false>, smem, grid, kMmaWarps * 32, a);
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int Hq, int Hkv, int window, int causal,
-                   cudaStream_t stream) {
-  auto kernel = local_attn_kernel<T, D>;
+template <int D>
+cudaError_t launch_f32(const Launch& a) {
+  const dim3 grid((a.S + kBQ - 1) / kBQ, a.Hq, a.B);
   const size_t smem = smem_bytes<D>();
-  const cudaError_t err = repro::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, Hq, Hkv, window,
-      causal);
-  return cudaGetLastError();
+  return a.cap > 0.f
+      ? run<float>(local_attn_kernel<float, D, true>, smem, grid, kThreads, a)
+      : run<float>(local_attn_kernel<float, D, false>, smem, grid, kThreads, a);
 }
-
-#define REPRO_LOCAL_ARGS q, k, v, out, B, S, Hq, Hkv, window, causal, stream
 
 // float32: the CUDA-core kernel; bf16: the tensor-core kernel
-cudaError_t launch_d(int dtype, int D, const void* q, const void* k,
-                     const void* v, void* out, int B, int S, int Hq, int Hkv,
-                     int window, int causal, cudaStream_t stream) {
+cudaError_t launch_d(int dtype, int D, const Launch& a) {
   if (dtype == 0) {
     switch (D) {
-      case 64: return launch<float, 64>(REPRO_LOCAL_ARGS);
-      case 128: return launch<float, 128>(REPRO_LOCAL_ARGS);
-      case 256: return launch<float, 256>(REPRO_LOCAL_ARGS);
+      case 64: return launch_f32<64>(a);
+      case 128: return launch_f32<128>(a);
+      case 256: return launch_f32<256>(a);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype == 1) {
     switch (D) {
-      case 64: return launch_mma<64>(REPRO_LOCAL_ARGS);
-      case 128: return launch_mma<128>(REPRO_LOCAL_ARGS);
-      case 256: return launch_mma<256>(REPRO_LOCAL_ARGS);
+      case 64: return launch_mma<64>(a);
+      case 128: return launch_mma<128>(a);
+      case 256: return launch_mma<256>(a);
       default: return cudaErrorInvalidValue;
     }
   }
   return cudaErrorInvalidValue;
 }
 
-#undef REPRO_LOCAL_ARGS
-
 }  // namespace
 
-// q, out (B,S,Hq,D) and k, v (B,S,Hkv,D) of one dtype (0: float32,
-// 1: bfloat16), contiguous on `device`; D in {64, 128, 256}, window >= 1.
+// The launch's arguments, packed by kernels/local_attn/ops.py: 14 int64,
+// then one float32:
+//   a[0..3]   q, k, v, out: q, out (B,S,Hq,D) and k, v (B,S,Hkv,D) of one
+//             dtype, contiguous on `device`
+//   a[4..8]   B, S, Hq, Hkv, D (D in {64, 128, 256}, Hq a multiple of Hkv)
+//   a[9]      window (>= 1), a[10] causal, a[11] dtype (0: float32,
+//             1: bfloat16), a[12] device, a[13] stream
+//   then      the softcap (0: none; else > 0)
 // Returns the cudaError_t of the launch.
-REPRO_EXPORT int local_attn_launch(const void* q, const void* k, const void* v,
-                                   void* out, int B, int S, int Hq, int Hkv,
-                                   int D, int window, int causal, int dtype,
-                                   int device, void* stream) {
-  cudaError_t err = repro::use_device(device);
+REPRO_EXPORT int local_attn_launch(const char* packed) {
+  int64_t f[14];
+  float cap;
+  std::memcpy(f, packed, sizeof f);
+  std::memcpy(&cap, packed + sizeof f, sizeof cap);
+  cudaError_t err = repro::use_device(static_cast<int>(f[12]));
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (B == 0 || S == 0) return 0;
-  err = launch_d(dtype, D, q, k, v, out, B, S, Hq, Hkv, window, causal,
-                 static_cast<cudaStream_t>(stream));
+  Launch a;
+  a.q = reinterpret_cast<const void*>(f[0]);
+  a.k = reinterpret_cast<const void*>(f[1]);
+  a.v = reinterpret_cast<const void*>(f[2]);
+  a.out = reinterpret_cast<void*>(f[3]);
+  a.B = static_cast<int>(f[4]);
+  a.S = static_cast<int>(f[5]);
+  a.Hq = static_cast<int>(f[6]);
+  a.Hkv = static_cast<int>(f[7]);
+  a.window = static_cast<int>(f[9]);
+  a.causal = static_cast<int>(f[10]);
+  a.cap = cap;
+  a.stream = reinterpret_cast<cudaStream_t>(f[13]);
+  if (a.B == 0 || a.S == 0) return 0;
+  if (a.Hkv < 1 || a.Hq % a.Hkv != 0 || a.window < 1 || !(cap >= 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = launch_d(static_cast<int>(f[11]), static_cast<int>(f[8]), a);
   return static_cast<int>(err);
 }

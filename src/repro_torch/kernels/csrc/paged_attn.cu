@@ -58,6 +58,7 @@
 // exception is noted there), held to float32 tolerances.
 #include <climits>
 #include <cstdint>
+#include <cstring>
 
 #include "common.cuh"
 #include "tile.cuh"
@@ -542,34 +543,48 @@ cudaError_t launch_d(int D, int ps, const void* q, const void* k_pool,
 
 }  // namespace
 
-// q, out (B,T,Hkv,G,D) and k_pool, v_pool (P,ps,Hkv,D) of one dtype
-// (dtype 0: float32, 1: bfloat16), pos_pool (P,ps), page_rows (B,n) and
-// qpos (B,T) int32, all contiguous on `device`; D in {64, 128, 256}, ps
-// in {4, 8, 16, 32}; pages_per_split >= 1. With ceil(n / pages_per_split)
-// > 1 splits, `part` is float32 scratch of B*Hkv*splits*T*G*(D+2) values
-// (else it may be null). Returns the cudaError_t of the launches.
-REPRO_EXPORT int paged_attn_launch(const void* q, const void* k_pool,
-                                   const void* v_pool, const int* pos_pool,
-                                   const int* page_rows, const int* qpos,
-                                   void* out, void* part, int B, int Tq,
-                                   int Hkv, int G, int D, int n, int ps,
-                                   int pages_per_split, int window,
-                                   float softcap, int dtype, int device,
-                                   void* stream) {
-  cudaError_t err = repro::use_device(device);
+// The launch's arguments, packed by kernels/paged_attn/ops.py: 20 int64,
+// then one float32:
+//   f[0..7]   q, k_pool, v_pool, pos_pool, page_rows, qpos, out, part:
+//             q, out (B,T,Hkv,G,D) and k_pool, v_pool (P,ps,Hkv,D) of one
+//             dtype, pos_pool (P,ps), page_rows (B,n) and qpos (B,T)
+//             int32, all contiguous on `device`; with ceil(n /
+//             pages_per_split) > 1 splits, `part` is float32 scratch of
+//             B*Hkv*splits*T*G*(D+2) values (else it may be 0)
+//   f[8..15]  B, T, Hkv, G, D (64, 128 or 256), n, ps (4, 8, 16 or 32),
+//             pages_per_split (>= 1)
+//   f[16]     window (0: none), f[17] dtype (0: float32, 1: bfloat16),
+//             f[18] device, f[19] stream
+//   then      the softcap (0: none)
+// Returns the cudaError_t of the launches.
+REPRO_EXPORT int paged_attn_launch(const char* packed) {
+  int64_t f[20];
+  float softcap;
+  std::memcpy(f, packed, sizeof f);
+  std::memcpy(&softcap, packed + sizeof f, sizeof softcap);
+  cudaError_t err = repro::use_device(static_cast<int>(f[18]));
   if (err != cudaSuccess) return static_cast<int>(err);
+  const void* q = reinterpret_cast<const void*>(f[0]);
+  const void* k_pool = reinterpret_cast<const void*>(f[1]);
+  const void* v_pool = reinterpret_cast<const void*>(f[2]);
+  const int* pos_pool = reinterpret_cast<const int*>(f[3]);
+  const int* page_rows = reinterpret_cast<const int*>(f[4]);
+  const int* qpos = reinterpret_cast<const int*>(f[5]);
+  void* out = reinterpret_cast<void*>(f[6]);
+  float* part = reinterpret_cast<float*>(f[7]);
+  const int B = static_cast<int>(f[8]), Tq = static_cast<int>(f[9]);
+  const int Hkv = static_cast<int>(f[10]), G = static_cast<int>(f[11]);
+  const int D = static_cast<int>(f[12]), n = static_cast<int>(f[13]);
+  const int ps = static_cast<int>(f[14]);
+  const int pages_per_split = static_cast<int>(f[15]);
+  const int window = static_cast<int>(f[16]), dtype = static_cast<int>(f[17]);
+  const auto stream = reinterpret_cast<cudaStream_t>(f[19]);
   if (B == 0 || Tq == 0) return 0;
   if (pages_per_split < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* f = static_cast<float*>(part);
   if (dtype == 0)
-    err = launch_d<float>(D, ps, q, k_pool, v_pool, pos_pool, page_rows, qpos,
-                          out, f, B, Tq, Hkv, G, n, pages_per_split, window,
-                          softcap, s);
+    err = launch_d<float>(D, ps, REPRO_PAGED_ARGS);
   else if (dtype == 1)
-    err = launch_d<__nv_bfloat16>(D, ps, q, k_pool, v_pool, pos_pool,
-                                  page_rows, qpos, out, f, B, Tq, Hkv, G, n,
-                                  pages_per_split, window, softcap, s);
+    err = launch_d<__nv_bfloat16>(D, ps, REPRO_PAGED_ARGS);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -6,11 +6,16 @@ It computes what the reference's Pallas kernel computes
 k/v (B,S,Hkv,D), query head h reading KV head h // (Hq/Hkv):
 
     s[i,j] = q_i . k_j / sqrt(D)              (float32, a division)
+    s[i,j] = c * tanh(s[i,j] / c)            (with a softcap c > 0)
     key j attendable from query i iff 0 <= j < S, i - j < window and
              (causal: i - j >= 0;  non-causal: j - i < window)
     out_i  = sum_j exp(s_ij - m_i) v_j / max(sum_j exp(s_ij - m_i), 1e-30)
 
-over the attendable keys, in float32, cast to q's dtype. It walks the
+over the attendable keys, in float32, cast to q's dtype. The softcap is
+the reference's model code's (``attention.local_attention(softcap_val=)``,
+applied in float32 after the scale and before the mask); the Pallas
+kernel has none. ``softcap=0`` leaves the function as it was without it,
+to the bit. It walks the
 queries in blocks and, for each, only the keys of its band, so memory
 stays O(block * (window + block)).
 
@@ -30,6 +35,7 @@ NEG_INF = -1e30
 
 def local_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         window: int, causal: bool = True,
+                        softcap: float = 0.0,
                         block_q: int = 512) -> torch.Tensor:
     """q (B,S,Hq,D), k/v (B,S,Hkv,D) -> (B,S,Hq,D) in q's dtype."""
     B, S, Hq, D = q.shape
@@ -45,6 +51,8 @@ def local_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         j1 = i1 if causal else min(S, i1 + window - 1)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, i0:i1],
                          kf[:, j0:j1]) / math.sqrt(D)
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
         delta = pos[i0:i1, None] - pos[None, j0:j1]
         mask = delta < window
         mask = mask & (delta >= 0) if causal else mask & (-delta < window)

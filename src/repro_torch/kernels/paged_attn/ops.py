@@ -17,23 +17,31 @@ One kernel serves the three shapes of the paged path: decode (T=1),
 speculative verify (T=k+1) and a chunk of a prompt (T=chunk). On a CPU
 tensor the wrapper computes the plain version in ``ref.py``. On a CUDA
 tensor it launches the kernel or raises; nothing falls back.
+
+The host path is kept short, as the other wrappers' are: one test of the
+common case before the detailed checks (``_check``, which names the
+fault), the raw stream handle, and the arguments packed into one ctypes
+argument (the softcap as a float32 field).
 """
 from __future__ import annotations
 
 import ctypes
+import math
+import struct
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import sm_count
+from repro_torch.kernels.common import sm_count, stream_handle
 from repro_torch.kernels.paged_attn.ref import paged_attention_ref
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 HEAD_DIMS = (64, 128, 256)          # instantiated in csrc/paged_attn.cu
 PAGE_SIZES = (4, 8, 16, 32)         # likewise
 ROWS_PER_BLOCK = 16                 # kRows in csrc/paged_attn.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# 20 int64 (pointers, shape, plan, window, dtype, device, stream), then the
+# softcap
+_ARGS = struct.Struct("=20qf")
 
 
 def plan_splits(B: int, Hkv: int, row_tiles: int, n: int,
@@ -69,10 +77,9 @@ def grid_of(B: int, T: int, Hq: int, Hkv: int, n: int,
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attn")
-    fn = lib.paged_attn_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _I, _P]
-        fn.restype = _I
+    if lib.paged_attn_launch.argtypes is None:
+        lib.paged_attn_launch.argtypes = [ctypes.c_char_p]
+        lib.paged_attn_launch.restype = ctypes.c_int
     return lib
 
 
@@ -120,6 +127,31 @@ def _check(q, k_pool, v_pool, pos_pool, page_rows, qpos) -> None:
             raise ValueError(f"{what}: {name} is not 16-byte aligned")
 
 
+def _fits(q, k_pool, v_pool, pos_pool, page_rows, qpos) -> bool:
+    """One test of the common case: what ``_check`` holds, in one pass."""
+    if q.dim() != 4 or k_pool.dim() != 4 or page_rows.dim() != 2:
+        return False
+    B, T, Hq, D = q.shape
+    P, ps, Hkv = k_pool.shape[:3]
+    dt, i32, d = q.dtype, torch.int32, q.get_device()
+    return (dt in _DTYPES and k_pool.dtype is dt and v_pool.dtype is dt
+            and pos_pool.dtype is i32 and page_rows.dtype is i32
+            and qpos.dtype is i32
+            and q.is_contiguous() and k_pool.is_contiguous()
+            and v_pool.is_contiguous() and pos_pool.is_contiguous()
+            and page_rows.is_contiguous() and qpos.is_contiguous()
+            and k_pool.get_device() == d and v_pool.get_device() == d
+            and pos_pool.get_device() == d and page_rows.get_device() == d
+            and qpos.get_device() == d
+            and k_pool.shape[3] == D and v_pool.shape == k_pool.shape
+            and pos_pool.shape == (P, ps) and qpos.shape == (B, T)
+            and page_rows.shape[0] == B
+            and Hkv > 0 and Hq % Hkv == 0 and D in HEAD_DIMS
+            and ps in PAGE_SIZES
+            and (q.data_ptr() | k_pool.data_ptr() | v_pool.data_ptr()) % 16
+            == 0)
+
+
 def paged_attention_fused(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, pos_pool: torch.Tensor,
                           page_rows: torch.Tensor, qpos: torch.Tensor, *,
@@ -130,30 +162,38 @@ def paged_attention_fused(q: torch.Tensor, k_pool: torch.Tensor,
     (-1 empty), page_rows (B,n) page ids (-1 unassigned), qpos (B,T)
     absolute query positions. ``window=0`` turns the sliding window off,
     ``softcap=0`` the logit softcap."""
-    if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pool, v_pool, pos_pool, page_rows,
-                                   qpos, window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention_fused: no kernel for device "
-                         f"{q.device}")
-    _check(q, k_pool, v_pool, pos_pool, page_rows, qpos)
+    if not (softcap >= 0.0 and math.isfinite(softcap)):
+        raise ValueError(f"paged_attention_fused: softcap must be finite and "
+                         f">= 0, got {softcap}")
+    if not q.is_cuda:
+        kind = q.device.type
+        if kind == "cpu":
+            return paged_attention_ref(q, k_pool, v_pool, pos_pool,
+                                       page_rows, qpos, window=window,
+                                       softcap=softcap)
+        if kind != "cuda":
+            raise ValueError(f"paged_attention_fused: no kernel for device "
+                             f"{q.device}")
+    if not _fits(q, k_pool, v_pool, pos_pool, page_rows, qpos):
+        _check(q, k_pool, v_pool, pos_pool, page_rows, qpos)
     B, T, Hq, D = q.shape
     ps, Hkv = k_pool.shape[1], k_pool.shape[2]
     n = page_rows.shape[1]
     lib = _lib()
-    pps, splits, _ = grid_of(B, T, Hq, Hkv, n, sm_count(q.device.index))
+    dev = q.get_device()
+    pps, splits, _ = grid_of(B, T, Hq, Hkv, n, sm_count(dev))
     out = torch.empty_like(q)
     # each split's float32 partial of every (slot, query row): acc[D], m, l
-    part = (torch.empty(B * splits * T * Hq * (D + 2), dtype=torch.float32,
-                        device=q.device) if splits > 1 else None)
-    rc = lib.paged_attn_launch(
+    part = (q.new_empty(B * splits * T * Hq * (D + 2), dtype=torch.float32)
+            if splits > 1 else None)
+    rc = lib.paged_attn_launch(_ARGS.pack(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         pos_pool.data_ptr(), page_rows.data_ptr(), qpos.data_ptr(),
-        out.data_ptr(), None if part is None else part.data_ptr(), B, T, Hkv,
-        Hq // Hkv, D, n, ps, pps, int(window), float(softcap),
-        _DTYPES[q.dtype], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check_launch(lib, rc, "paged_attention_fused")
+        out.data_ptr(), 0 if part is None else part.data_ptr(), B, T, Hkv,
+        Hq // Hkv, D, n, ps, pps, window, _DTYPES[q.dtype], dev,
+        stream_handle(dev), softcap))
+    if rc:
+        build.check_launch(lib, rc, "paged_attention_fused")
     paged_attention_fused.launches += 1
     return out
 

@@ -8,9 +8,11 @@ Two modes, as in the reference's ``repro/launch/serve.py``:
     moments are never loaded), roll forward day by day over the held-out forcing
     windows through :class:`Forecaster`, reporting per-watershed NSE
     against observed discharge;
-  * a decoder — dense (``--arch qwen2-1.5b``), RG-LRU/local-attention
-    hybrid (``--arch recurrentgemma-2b``) or SSM (``--arch mamba2-130m``),
-    ``--smoke`` for the reduced variant — continuous batching over the paged
+  * a decoder — dense (``--arch qwen2-1.5b``, ``llama3.2-3b``,
+    ``olmo-1b``, or ``gemma2-2b`` / ``gemma2-2b-localonly`` with their
+    local layers and softcaps), RG-LRU/local-attention hybrid (``--arch
+    recurrentgemma-2b``) or SSM (``--arch mamba2-130m``), ``--smoke`` for
+    the reduced variant — continuous batching over the paged
     :class:`InferenceEngine` through the :class:`Scheduler`: one
     whole-prompt prefill per request (or ``--prefill-chunk N`` tokens at a
     time, interleaved with decode steps), one fused all-slot decode step
@@ -35,6 +37,8 @@ raises.
       --arch recurrentgemma-2b --requests 4 --prompt-len 512 --ragged --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --smoke --device cpu --prefill-chunk 3 --spec-k 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
+      --smoke --device cpu
 """
 from __future__ import annotations
 

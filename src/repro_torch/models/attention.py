@@ -135,21 +135,19 @@ def attention_block(params, cfg: ModelConfig, x: torch.Tensor, *, kind: str,
     (out (B,S,d), (k, v)). A global layer runs ``flash_attention``; a
     local layer runs ``local``, the sliding-window kernel's wrapper
     (its plain version is passed only to check the kernel's run on the
-    card), with ``window=cfg.window``. The local kernel has no softcap,
-    so a local layer with ``attn_softcap`` (gemma2) raises. The training
-    path (``blockq_attention``) comes with a later slice."""
+    card), with ``window=cfg.window`` and ``softcap=cfg.attn_softcap``
+    (gemma2's 50, applied to the float32 scores before the mask, as the
+    reference's ``local_attention`` does). The training path
+    (``blockq_attention``) comes with a later slice."""
     if kind not in ("global", "local"):
         raise ValueError(kind)
-    if kind == "local" and cfg.attn_softcap:
-        raise NotImplementedError(
-            f"{cfg.name}: local attention with a softcap has no kernel "
-            "(ROADMAP Queue A, item 4)")
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     q, k, v = qkv_project(params, cfg, x, positions)
     if kind == "local":
         o = local(q.contiguous(), k.contiguous(), v.contiguous(),
-                  window=cfg.window, causal=cfg.causal)
+                  window=cfg.window, causal=cfg.causal,
+                  softcap=float(cfg.attn_softcap))
     else:
         o = flash_attention(q, k, v, causal=cfg.causal,
                             softcap_val=cfg.attn_softcap)

@@ -23,7 +23,7 @@ Token outputs come back as numpy arrays, which is where a step waits for
 the device. Prefix-cache, preemption and host-tier hooks (``copy_pages``,
 ``get/set_slot_state``, ``swap_out/swap_in``, ``spill_page``,
 ``restore_pages``) raise ``NotImplementedError``: ROADMAP Queue A,
-item 5. The contiguous (unpaged) layout is not ported: ``paged`` is
+item 4. The contiguous (unpaged) layout is not ported: ``paged`` is
 always True.
 
 Entry points run on the card unless the caller asks for the CPU
@@ -46,7 +46,7 @@ from repro_torch.serve.state import (
     InferenceState, clear_pages, new_paged_inference_state, select_verified,
 )
 
-_ROADMAP = "not ported yet (ROADMAP Queue A, item 5)"
+_ROADMAP = "not ported yet (ROADMAP Queue A, item 4)"
 
 
 class InferenceEngine:
@@ -129,12 +129,12 @@ class InferenceEngine:
                      context=()) -> InferenceState:
         """Install a request's sampling config into ``slot``. The port
         serves greedy requests only; the sampler (``sampling.draw``) waits
-        for ROADMAP Queue A, item 6."""
+        for ROADMAP Queue A, item 5."""
         params.validate()
         if not params.greedy:
             raise NotImplementedError(
                 "sampled decoding (temperature > 0) is not ported yet "
-                "(ROADMAP Queue A, item 6)")
+                "(ROADMAP Queue A, item 5)")
         return state
 
     def copy_pages(self, state, src, dst):

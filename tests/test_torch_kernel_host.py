@@ -1,8 +1,10 @@
-"""The host side of the conv1d, LSTM-step, Pix-Con and SSD-chunk
-wrappers, on the CPU: their input checks, the launch plans they pass to
-``csrc/conv1d.cu``, ``csrc/lstm_cell.cu`` and ``csrc/ssd_chunk.cu``
-(``plan_conv``, ``plan_lstm``, ``plan_ssd``), and the arguments they pack
-for a launch. No card is needed: a CPU tensor that reports a
+"""The host side of the conv1d, LSTM-step, Pix-Con, SSD-chunk,
+local-attention and paged-attention wrappers, on the CPU: their input
+checks, the launch plans they pass to ``csrc/conv1d.cu``,
+``csrc/lstm_cell.cu``, ``csrc/ssd_chunk.cu`` and ``csrc/paged_attn.cu``
+(``plan_conv``, ``plan_lstm``, ``plan_ssd``, ``grid_of``), and the
+arguments they pack for a launch (the attention softcap as a float32
+field). No card is needed: a CPU tensor that reports a
 CUDA device takes the wrapper down its CUDA path, where the checks run and
 the kernel library, absent here, raises (or a stand-in records the packed
 arguments). Nothing of the reference package is imported."""
@@ -16,7 +18,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.common import check_activations, check_inputs  # noqa: E402
 from repro_torch.kernels.conv1d import ops as conv_ops  # noqa: E402
+from repro_torch.kernels.local_attn import ops as local_ops  # noqa: E402
 from repro_torch.kernels.lstm_cell import ops as lstm_ops  # noqa: E402
+from repro_torch.kernels.paged_attn import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.pixcon import ops as pixcon_ops  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops  # noqa: E402
 
@@ -257,6 +261,146 @@ def test_ssd_chunk_inputs_that_pass_reach_the_kernel(no_library, dtype):
 
 
 # ---------------------------------------------------------------------------
+# Local attention: each fault raises what ``check_activations`` raises
+# ---------------------------------------------------------------------------
+def _local_inputs(B=1, S=6, Hq=4, Hkv=2, D=64, dtype=torch.float32):
+    return dict(q=_card(B, S, Hq, D, dtype=dtype),
+                k=_card(B, S, Hkv, D, dtype=dtype, seed=1),
+                v=_card(B, S, Hkv, D, dtype=dtype, seed=2))
+
+
+LOCAL_FAULTS = {
+    "k_float64": (TypeError, lambda a: {**a, "k": a["k"].double()}),
+    "k_bf16_q_fp32": (TypeError, lambda a: {**a, "k": a["k"].bfloat16()}),
+    "q_float16": (TypeError, lambda a: {k: v.half() for k, v in a.items()}),
+    "v_not_contiguous": (ValueError, lambda a: {
+        **a, "v": a["v"].transpose(1, 2).contiguous().transpose(1, 2)}),
+    "k_wrong_length": (ValueError, lambda a: {**a, "k": _card(1, 5, 2, 64)}),
+    "v_wrong_heads": (ValueError, lambda a: {**a, "v": _card(1, 6, 1, 64)}),
+    "v_on_cpu": (ValueError, lambda a: {**a, "v": torch.randn(1, 6, 2, 64)}),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(LOCAL_FAULTS))
+def test_local_attn_checks_raise_as_before(no_library, fault):
+    kind, make = LOCAL_FAULTS[fault]
+    a = make(_local_inputs())
+    got = _raised(lambda: local_ops.local_attention_fused(**a, window=4))
+    B, S, _, D = a["q"].shape
+    Hkv = a["k"].shape[2]
+    want = _raised(lambda: check_activations(
+        "local_attention_fused", a, dict(k=(B, S, Hkv, D), v=(B, S, Hkv, D))))
+    assert want is not None and want[0] is kind
+    assert got == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_attn_inputs_that_pass_reach_the_kernel(no_library, dtype):
+    before = local_ops.local_attention_fused.launches
+    with pytest.raises(RuntimeError, match="no CUDA kernel library"):
+        local_ops.local_attention_fused(**_local_inputs(dtype=dtype),
+                                        window=4, softcap=50.0)
+    assert local_ops.local_attention_fused.launches == before
+    with pytest.raises(ValueError, match="multiple"):
+        local_ops.local_attention_fused(**_local_inputs(Hq=3, dtype=dtype),
+                                        window=4)
+    with pytest.raises(ValueError, match="head_dim"):
+        local_ops.local_attention_fused(**_local_inputs(D=48, dtype=dtype),
+                                        window=4)
+
+
+@pytest.mark.parametrize("softcap", [-1.0, float("nan"), float("inf")])
+@pytest.mark.parametrize("on_card", [True, False])
+def test_attention_wrappers_refuse_a_bad_softcap(no_library, softcap,
+                                                 on_card):
+    """A negative, NaN or infinite softcap raises in both attention
+    wrappers, on the CPU as on the card."""
+    a = _local_inputs() if on_card else {
+        k: torch.Tensor(v) for k, v in _local_inputs().items()}
+    with pytest.raises(ValueError, match="softcap"):
+        local_ops.local_attention_fused(**a, window=4, softcap=softcap)
+    p = _paged_inputs()
+    if not on_card:
+        p = {k: torch.Tensor(v) for k, v in p.items()}
+    with pytest.raises(ValueError, match="softcap"):
+        paged_ops.paged_attention_fused(**p, softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
+# Paged attention: each fault raises what ``_check`` raises for it
+# ---------------------------------------------------------------------------
+def _paged_inputs(B=2, T=1, Hq=4, Hkv=2, D=64, ps=4, P=6, n=3,
+                  dtype=torch.float32):
+    pos = torch.arange(P * ps, dtype=torch.int32).view(P, ps)
+    rows = torch.tensor([[0, 2, -1], [1, 3, 4]], dtype=torch.int32)[:B, :n]
+    return dict(q=_card(B, T, Hq, D, dtype=dtype),
+                k_pool=_card(P, ps, Hkv, D, dtype=dtype, seed=1),
+                v_pool=_card(P, ps, Hkv, D, dtype=dtype, seed=2),
+                pos_pool=pos.as_subclass(_OnCard),
+                page_rows=rows.as_subclass(_OnCard),
+                qpos=torch.full((B, T), 7, dtype=torch.int32).as_subclass(
+                    _OnCard))
+
+
+def _misaligned(t):
+    flat = _card(t.numel() + 1, dtype=t.dtype)
+    return flat[1:].view(t.shape)
+
+
+PAGED_FAULTS = {
+    "q_float16": (TypeError, lambda a: {**a, "q": a["q"].half()}),
+    "k_pool_bf16_q_fp32": (TypeError, lambda a: {
+        **a, "k_pool": a["k_pool"].bfloat16()}),
+    "qpos_int64": (TypeError, lambda a: {**a, "qpos": a["qpos"].long()}),
+    "page_rows_float": (TypeError, lambda a: {
+        **a, "page_rows": a["page_rows"].float()}),
+    "page_rows_not_contiguous": (ValueError, lambda a: {
+        **a, "page_rows": a["page_rows"].t().contiguous().t()}),
+    "v_pool_wrong_shape": (ValueError, lambda a: {
+        **a, "v_pool": _card(6, 4, 1, 64)}),
+    "pos_pool_wrong_shape": (ValueError, lambda a: {
+        **a, "pos_pool": a["pos_pool"][:5]}),
+    "qpos_wrong_shape": (ValueError, lambda a: {
+        **a, "qpos": a["qpos"][:1]}),
+    "page_rows_one_dim": (ValueError, lambda a: {
+        **a, "page_rows": a["page_rows"][0]}),
+    "page_rows_on_cpu": (ValueError, lambda a: {
+        **a, "page_rows": torch.Tensor(a["page_rows"])}),
+    "heads_not_a_multiple": (ValueError, lambda a: {
+        **a, "q": _card(2, 1, 3, 64)}),
+    "head_dim_48": (ValueError, lambda a: {
+        **a, "q": _card(2, 1, 4, 48), "k_pool": _card(6, 4, 2, 48),
+        "v_pool": _card(6, 4, 2, 48)}),
+    "page_size_6": (ValueError, lambda a: {
+        **a, "k_pool": _card(4, 6, 2, 64), "v_pool": _card(4, 6, 2, 64),
+        "pos_pool": torch.zeros(4, 6, dtype=torch.int32).as_subclass(
+            _OnCard)}),
+    "q_misaligned": (ValueError, lambda a: {**a, "q": _misaligned(a["q"])}),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(PAGED_FAULTS))
+def test_paged_attn_checks_raise_as_before(no_library, fault):
+    kind, make = PAGED_FAULTS[fault]
+    a = make(_paged_inputs())
+    got = _raised(lambda: paged_ops.paged_attention_fused(**a, window=5,
+                                                          softcap=50.0))
+    want = _raised(lambda: paged_ops._check(**a))
+    assert want is not None and want[0] is kind
+    assert got == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attn_inputs_that_pass_reach_the_kernel(no_library, dtype):
+    a = _paged_inputs(dtype=dtype)
+    assert paged_ops._fits(**a) and paged_ops._check(**a) is None
+    before = paged_ops.paged_attention_fused.launches
+    with pytest.raises(RuntimeError, match="no CUDA kernel library"):
+        paged_ops.paged_attention_fused(**a, softcap=50.0)
+    assert paged_ops.paged_attention_fused.launches == before
+
+
+# ---------------------------------------------------------------------------
 # What a wrapper packs for its launch: the tensors, the shape and the plan
 # ---------------------------------------------------------------------------
 class _Library:
@@ -278,9 +422,12 @@ def recorded(monkeypatch):
     """The wrappers launch into a ``_Library``; their launch counts are put
     back afterwards (other tests read them from 0)."""
     libs = {conv_ops: _Library("17q"), lstm_ops: _Library("21q"),
-            pixcon_ops: _Library("=18qf"), ssd_ops: _Library("21q")}
+            pixcon_ops: _Library("=18qf"), ssd_ops: _Library("21q"),
+            local_ops: _Library("=14qf"), paged_ops: _Library("=20qf")}
     for fn in (conv_ops.causal_conv1d, lstm_ops.lstm_cell_fused,
-               pixcon_ops.pixcon_gate, ssd_ops.ssd_chunk_fused):
+               pixcon_ops.pixcon_gate, ssd_ops.ssd_chunk_fused,
+               local_ops.local_attention_fused,
+               paged_ops.paged_attention_fused):
         monkeypatch.setattr(fn, "launches", fn.launches)
     for ops, lib in libs.items():
         monkeypatch.setattr(ops, "_lib", lambda lib=lib: lib)
@@ -392,6 +539,63 @@ def test_ssd_chunk_launch_packs_its_fields(recorded, dtype, offset):
     assert p.vec is (offset == 0)
     assert p.ksteps == (8 if bf16 else 0)
     assert p.qtiles == (8 if bf16 else 4) and p.state_first is bf16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("softcap,causal", [(0.0, True), (50.0, True),
+                                            (30.5, False)])
+def test_local_attn_launch_packs_its_fields(recorded, dtype, softcap, causal):
+    """gemma2-2b's local layer (8 query heads on 4, D=256) at a ragged S:
+    pointers, shape, window, causal, dtype flag, and the softcap as a
+    float32 field after them."""
+    a = _local_inputs(B=2, S=37, Hq=8, Hkv=4, D=256, dtype=dtype)
+    before = local_ops.local_attention_fused.launches
+    out = local_ops.local_attention_fused(**a, window=16, causal=causal,
+                                          softcap=softcap)
+    assert local_ops.local_attention_fused.launches == before + 1
+    assert out.dtype == dtype and out.shape == a["q"].shape
+    (f,) = recorded[local_ops].calls
+    assert f[:4] == (a["q"].data_ptr(), a["k"].data_ptr(), a["v"].data_ptr(),
+                     out.data_ptr())
+    assert f[4:14] == (2, 37, 8, 4, 256, 16, int(causal),
+                       int(dtype is torch.bfloat16), 0, 0)
+    assert f[14] == np.float32(softcap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,n,window,softcap", [
+    (4, 1, 8, 4, 256, 290, 4096, 50.0),   # gemma2-2b decode: split rows
+    (1, 128, 8, 4, 256, 290, 0, 50.0),    # a gemma2 chunk of a global layer
+    (4, 4, 24, 8, 128, 36, 0, 0.0),       # llama3.2-3b verify, G=3
+    (4, 1, 16, 16, 128, 36, 0, 0.0),      # olmo-1b decode, G=1
+])
+def test_paged_attn_launch_packs_its_fields(recorded, dtype, B, T, Hq, Hkv,
+                                            D, n, window, softcap):
+    """Pointers (the split-K scratch where the plan splits the rows, else
+    0), shape, the plan of ``grid_of`` on 132 SMs, window, dtype flag and
+    the softcap as a float32 field."""
+    ps, P = 16, n * B + 1
+    rows = torch.arange(B * n, dtype=torch.int32).view(B, n)
+    a = dict(q=_card(B, T, Hq, D, dtype=dtype),
+             k_pool=_card(P, ps, Hkv, D, dtype=dtype, seed=1),
+             v_pool=_card(P, ps, Hkv, D, dtype=dtype, seed=2),
+             pos_pool=torch.zeros(P, ps, dtype=torch.int32).as_subclass(
+                 _OnCard),
+             page_rows=rows.as_subclass(_OnCard),
+             qpos=torch.zeros(B, T, dtype=torch.int32).as_subclass(_OnCard))
+    before = paged_ops.paged_attention_fused.launches
+    out = paged_ops.paged_attention_fused(**a, window=window, softcap=softcap)
+    assert paged_ops.paged_attention_fused.launches == before + 1
+    assert out.dtype == dtype and out.shape == a["q"].shape
+    (f,) = recorded[paged_ops].calls
+    pps, splits, _ = paged_ops.grid_of(B, T, Hq, Hkv, n, 132)
+    assert f[:7] == (*(a[k].data_ptr() for k in (
+        "q", "k_pool", "v_pool", "pos_pool", "page_rows", "qpos")),
+        out.data_ptr())
+    assert (f[7] != 0) is (splits > 1)
+    assert f[8:20] == (B, T, Hkv, Hq // Hkv, D, n, ps, pps, window,
+                       int(dtype is torch.bfloat16), 0, 0)
+    assert f[20] == np.float32(softcap)
 
 
 # ---------------------------------------------------------------------------

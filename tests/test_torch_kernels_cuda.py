@@ -8,7 +8,8 @@ reference package, so they also run on a GPU machine without JAX:
 
 fp32, atol 1e-5: the kernels sum in another order than PyTorch, except
 the Pix-Con weights, which must agree to the bit (the partitioner ranks
-pixels by them). Paged attention in bf16: atol 2e-2, one bf16 ulp at
+pixels by them). Paged attention and local attention (with and without
+gemma2's softcap) in bf16: atol 2e-2, one bf16 ulp at
 |out| < 4, since a score summed in another order can round through bf16
 to the neighbouring value. The SSD chunk's bf16 y: one bf16 ulp at every
 magnitude (``BF16_ULP``), since its outputs reach |y| ~ 140. Gradients
@@ -479,6 +480,69 @@ def test_local_attn_kernel_matches_plain(dev, dtype, atol, B, S, Hq, Hkv, D,
     torch.cuda.synchronize()
     assert ops.local_attention_fused.launches == before + 1
     ref = local_attention_ref(**a, window=window, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,causal", [
+    (1, 4608, 8, 4, 256, 4096, True),   # gemma2-2b, longest prompt
+    (1, 1024, 8, 4, 256, 4096, True),   # window >= S
+    (2, 77, 8, 2, 128, 33, True),       # S not a tile multiple, GQA
+    (2, 77, 8, 1, 64, 33, False),       # non-causal MQA
+])
+def test_local_attn_softcap_matches_plain(dev, dtype, atol, B, S, Hq, Hkv, D,
+                                          window, causal):
+    """gemma2's attention softcap of 50, with q scaled by 4 so that the
+    scores reach ~20 and the cap moves the output: within the kernel's
+    tolerances (fp32 1e-5, bf16 2e-2). Attention that peaked makes an
+    output nearly one entry of v, so v is halved: every |out| stays under
+    4, where 2e-2 exceeds one bf16 ulp (past 4 an ulp is 2^-5, and two
+    correct roundings of one float32 result near a midpoint part by it)."""
+    from repro_torch.kernels.local_attn import ops
+    from repro_torch.kernels.local_attn.ref import local_attention_ref
+    g = torch.Generator().manual_seed(S + D + window + 50)
+    td = getattr(torch, dtype)
+    a = dict(q=_rn(g, dev, B, S, Hq, D, s=4.0).to(td),
+             k=_rn(g, dev, B, S, Hkv, D).to(td),
+             v=_rn(g, dev, B, S, Hkv, D, s=0.5).to(td))
+    kw = dict(window=window, causal=causal)
+    before = ops.local_attention_fused.launches
+    out = ops.local_attention_fused(**a, **kw, softcap=50.0)
+    torch.cuda.synchronize()
+    assert ops.local_attention_fused.launches == before + 1
+    ref = local_attention_ref(**a, **kw, softcap=50.0)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    uncapped = local_attention_ref(**a, **kw)
+    assert (ref.float() - uncapped.float()).abs().max() > 0.5 * 5e-2  # v/2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("T,Hq,Hkv,D,window,softcap,lens", [
+    # gemma2-2b mid-decode of its whole-prefill queue: a local layer
+    # (window 4,096) and a global one, softcap 50; and a verify step
+    (1, 8, 4, 256, 4096, 50.0, [4624, 4316, 1040, 528]),
+    (1, 8, 4, 256, 0, 50.0, [4624, 4316, 1040, 528]),
+    (4, 8, 4, 256, 4096, 50.0, [4624, 4316, 1040, 528]),
+    # llama3.2-3b (G=3) and olmo-1b (G=1) decode and verify
+    (1, 24, 8, 128, 0, 0.0, [528, 526, 524, 522]),
+    (4, 24, 8, 128, 0, 0.0, [528, 526, 524, 522]),
+    (1, 16, 16, 128, 0, 0.0, [528, 526, 524, 522]),
+])
+def test_paged_attn_dense_decoder_shapes(dev, dtype, atol, T, Hq, Hkv, D,
+                                         window, softcap, lens):
+    from repro_torch.kernels.paged_attn import ops
+    from repro_torch.kernels.paged_attn.ref import paged_attention_ref
+    g = torch.Generator().manual_seed(T * 100 + Hq + window)
+    n = -(-(max(lens) + 16) // 16)
+    a = _paged_case(g, dev, getattr(torch, dtype), 4, T, Hq, Hkv, D, 16, n,
+                    lens)
+    before = ops.paged_attention_fused.launches
+    out = ops.paged_attention_fused(**a, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert ops.paged_attention_fused.launches == before + 1
+    ref = paged_attention_ref(**a, window=window, softcap=softcap)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
 
 

@@ -10,7 +10,10 @@ and non-causal, GQA (4 query heads on 2 KV heads), MQA (on 1) and no
 grouping. The model code is compared in the causal cases only: for
 ``causal=False`` it reads keys no further than the end of each query's
 block and so drops the forward half of the band (the fault the Pallas
-kernel's own comment records fixing in the kernel; ROADMAP Queue C). Tolerances: float32 within 3e-5, the reference's own
+kernel's own comment records fixing in the kernel; ROADMAP Queue C). The
+softcap (gemma2's 50), which the Pallas kernel lacks, is held against the
+model code alone, causal, with scores past the cap. Tolerances: float32
+within 3e-5, the reference's own
 kernel-vs-model bound (softmax sums taken in another order, and the model
 code multiplies by 1/sqrt(D) where the kernel divides); bfloat16 within
 3e-2 (one bfloat16 ulp at |out| < 4) against the kernel and its oracle,
@@ -29,6 +32,7 @@ from repro.kernels.local_attn.ops import local_attention_fused as j_fused  # noq
 from repro.kernels.local_attn.ref import local_attention_ref as j_ref  # noqa: E402
 from repro.models.attention import local_attention as j_model  # noqa: E402
 from repro_torch.kernels.local_attn.ops import local_attention_fused  # noqa: E402
+from repro_torch.kernels.local_attn.ref import local_attention_ref  # noqa: E402
 
 torch.set_num_threads(1)
 TOL = {"float32": 3e-5, "bfloat16": 3e-2}
@@ -79,15 +83,34 @@ def test_rejects_empty_window():
         local_attention_fused(q, q, q, window=0)
 
 
-def test_local_layer_with_softcap_raises():
-    """The local kernel has no softcap, so a local layer with one (gemma2)
-    raises rather than run without it."""
-    from repro_torch.configs import get_config, smoke_variant
-    from repro_torch.models import attention, transformer
-    cfg = smoke_variant(get_config("recurrentgemma-2b")).replace(
-        attn_softcap=50.0)
-    params = transformer.init(cfg, torch.Generator().manual_seed(0))
-    x = torch.zeros(1, 5, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        attention.attention_block(params["layers"][1]["attn"], cfg, x,
-                                  kind="local")
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window", [
+    (2, 37, 4, 2, 16, 8),        # GQA (G=2), window < S, S unaligned
+    (1, 70, 4, 2, 32, 24),       # several blocks past the window
+])
+def test_softcap_matches_reference_model_code(B, S, Hq, Hkv, D, window,
+                                              softcap):
+    """The softcap as the reference's model code applies it
+    (``local_attention(softcap_val=)``: float32, after the scale, before
+    the mask), causal, fp32, with q scaled by 20 so that scores reach
+    ~60 and the cap of 50 binds."""
+    q, k, v = _mk(S + window + D, B, S, Hq, Hkv, D, jnp.float32)
+    q = q * np.float32(20)
+    got = local_attention_fused(torch.tensor(q), torch.tensor(k),
+                                torch.tensor(v), window=window,
+                                softcap=softcap).numpy()
+    plain = local_attention_ref(torch.tensor(q), torch.tensor(k),
+                                torch.tensor(v), window=window,
+                                softcap=softcap).numpy()
+    np.testing.assert_array_equal(got, plain)      # CPU: the plain version
+    want = j_model(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   window=window, causal=True, softcap_val=softcap,
+                   block_q=16)
+    np.testing.assert_allclose(got, np.asarray(want), atol=TOL["float32"],
+                               rtol=0)
+    uncapped = local_attention_ref(torch.tensor(q), torch.tensor(k),
+                                   torch.tensor(v), window=window).numpy()
+    if softcap:                                    # the cap binds
+        assert np.abs(got - uncapped).max() > 1e-2
+    else:
+        np.testing.assert_array_equal(got, uncapped)
