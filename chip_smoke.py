@@ -103,16 +103,18 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    launch counts set to 0 just before and read just after (paged_attn
    must be > 0, every other kernel 0), printing tok/s, decode tok/s, TTFT
    p50 and, from a profiled repeat of whole prefill, the device time by
-   kernel. Then the kernel against its plain version end to end: one bf16
-   ``decode_step_paged`` on the admitted state (logits within 2^-5 of
-   their largest magnitude) and the share of equal tokens in bf16
+   kernel. Then the kernel against its plain version end to end: one
+   bf16 ``decode_step_paged`` on the admitted state (logits within 2^-5
+   of their largest magnitude) and the share of equal tokens in bf16
    streams; in fp32, one decode step's logits, kernel against plain and
    plain on the card against plain on the CPU (how far two correct
-   float32 runs of this chaotic random model part), every launch of the
+   float32 runs of this chaotic random model part), every launch of
    three served runs held against the plain version on the same inputs
    (within 2e-3 of the output's largest magnitude), and the greedy
    streams, kernel against plain, equal in all three modes on the same
-   weights with the attention projections rescaled to unit variance;
+   weights with the attention projections rescaled to unit variance.
+   The profiled repeat and the bf16 streams against plain serve one
+   wave of the queue (its first 4 requests, 32 new tokens);
 6. recurrentgemma-2b at full width (26 layers, d 2,560, vocab 256,000,
    random weights from the port's init, seed 0, bf16, 16-token pages) on
    4 slots: whole-prompt prefill of prompts of 2,560/2,300/600/512 tokens
@@ -128,9 +130,10 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    against plain, equal on the weights with rescaled attention
    projections (on the main path's weights printed);
 7. mamba2-130m at full width (24 layers, d 768, state 128, chunk 256):
-   qwen2-1.5b's queue in the three modes (whole and spec: ssd_chunk and
-   conv1d > 0; chunked: ssd_chunk 0; every mode: paged_attn 0), the same measurements and checks, its
-   profiled repeat one wave of 4 requests x 32 tokens;
+   qwen2-1.5b's queue cut to one wave (4 requests x 32 new tokens) in the
+   three modes (whole and spec: ssd_chunk and conv1d > 0; chunked:
+   ssd_chunk 0; every mode: paged_attn 0), the same measurements and
+   checks, its profiled repeat the same wave;
 8. gemma2-2b at full width and depth (26 layers alternating local and
    global, d 2,304, 8 heads on 4 of 256, vocab 256,000, attention
    softcap 50, final softcap 30, sandwich norms; 2.614 B params, cast to
@@ -142,9 +145,9 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    other four kernels 0; the same measurements and checks as phase 6
    (the spec run's damped weights also scale the sandwich norms after
    each damped projection);
-9. llama3.2-3b (28 layers, d 3,072, 24 heads on 8) and olmo-1b (16
-   layers, d 2,048, 16 heads on 16, LayerNorm without affine parameters)
-   at full width: whole prefill of qwen2-1.5b's queue cut to 4 requests
+9. llama3.2-3b (d 3,072, 24 heads on 8; depth cut to 14 of its 28
+   layers, ``DENSE_DEPTH``) and olmo-1b (16 layers, d 2,048, 16 heads on
+   16, LayerNorm without affine parameters) at full width: whole prefill of qwen2-1.5b's queue cut to 4 requests
    x 32 new tokens (paged_attn > 0, every other kernel 0), tok/s, and one
    bf16 decode step's logits, kernel against plain: printed on the main
    path's weights, with plain on the card against plain on the CPU (the
@@ -152,11 +155,42 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    the weights with unit-variance attention projections; then every
    launch of an fp32 whole-prefill run held against the plain version
    (2e-3);
-10. one JSON line listing every ported kernel with its error, times, bound
+10. the serving policies at full width (16-token pages, 128-token
+   chunks, 4 slots; ``POLICY_CASES``): qwen2-1.5b in bf16 on 4
+   shared-prefix families x 4 requests (a 1,024-token system prompt,
+   64-192-token tails, 32 new tokens) cold, off device-tier prefix hits
+   (an ample pool; >= 12 hits and 12 x 1,024 hit tokens) and off
+   host-tier hits (a pool of two requests on 2 slots, 256 MiB of host
+   tier; >= 1 host hit, >= 64 pages spilled and restored), preemption
+   against defer-only on phase 5's 8 x 512 queue (a pool of three
+   requests: >= 1 preemption, restores = preemptions, the defer-only run
+   deferred), then the family queue cut to 2 x 2, 16 new tokens, sampled
+   (temperature 0.8, top-k 50, top-p 0.95, repetition penalty 1.1, a
+   seed a request) whole, chunked, with spec_k=3, preempted and off
+   prefix hits, and greedy with spec_k=3 and the model drafting for
+   itself (on the damped weights, beside the same queue without it).
+   Each run with its launch counts (paged_attn > 0, conv1d > 0 for
+   recurrentgemma-2b, the others 0), tok/s, decode tok/s, TTFT p50/p99
+   and, for the host-tier and preemption runs, the host time of each
+   swap_out, swap_in, spill_page and restore_pages call; bf16 streams'
+   share of equal tokens. Then the same runs in fp32 on the rescaled
+   weights and the cut queues, and recurrentgemma-2b in fp32 on them:
+   the cut family queue cold and off host-tier hits on a pool of one
+   request (the recurrent snapshots resume it), and preemption against
+   defer-only on phase 6's 512-token queue cut to 16 new tokens. In
+   fp32 every launch of the host-hit and preempted runs is held against
+   the plain version (2e-3; paged_attn, and conv1d for
+   recurrentgemma-2b, on shared prefix pages, rows scattered by swap-in
+   and host restore, chunks resuming at offset 1,024, tails restored
+   from snapshots), the hit, host-hit and preempted streams must equal
+   the cold and defer-only ones, every sampled run must print one
+   digest, and the model drafter's stream must equal the cold one with
+   every draft accepted;
+11. one JSON line listing every ported kernel with its error, times, bound
    and launches (by model and mode; Pix-Con and the LSTM step by path,
    forecast and training, with their times at the training shapes), then
    the line with the card's name and power limit;
-11. the last line, ``{"ok": true, "device": {...}}``.
+12. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card. ``torch.compile`` (the flex_attention yardstick)
 keeps its caches under ``build/`` and compiles in this process. Without CUDA, or run from a directory that does not
@@ -213,9 +247,9 @@ LM_CHUNK, LM_SPEC_K = 128, 3
 # local_attn's band, the ring-to-pages fill and paged_attn's window all do
 # real work); chunked prefill and speculative verify take 512-token prompts
 # (a recurrent layer steps through every token of a chunk). mamba2-130m:
-# qwen2-1.5b's queue in all three modes; its profiled repeat is one wave
-# (4 requests, 32 tokens): the profiler's post-processing of the whole
-# queue's ~150,000 launches would cost about a minute.
+# qwen2-1.5b's queue cut to one wave (4 requests, 32 tokens) in all three
+# modes, and so its profiled repeat: its 24 layers make ~150,000 launches
+# on the whole queue a mode, and the script's time went to phase 10.
 STEP_LENS = LM_LENS[:4]
 SERVED_RUNS = {
     "recurrentgemma-2b": {
@@ -223,16 +257,24 @@ SERVED_RUNS = {
                  "spec": STEP_LENS},
         "gen": 32, "profile": ([2560, 2300, 600, 512], 32)},
     "mamba2-130m": {
-        "lens": {"whole": LM_LENS, "chunked": LM_LENS, "spec": LM_LENS},
-        "gen": LM_GEN, "profile": (LM_LENS[:4], 32)},
+        "lens": {"whole": STEP_LENS, "chunked": STEP_LENS, "spec": STEP_LENS},
+        "gen": 32, "profile": (STEP_LENS, 32)},
     "gemma2-2b": {
         "lens": {"whole": [4608, 4300, 1024, 512], "chunked": STEP_LENS,
                  "spec": STEP_LENS},
         "gen": 32, "profile": ([4608, 4300, 1024, 512], 32)},
 }
+# Phase 10, the serving policies: shared-prefix families (a 1,024-token
+# system prompt and a 64-192-token tail each), 4 families x 4 requests
+# with 32 new tokens for qwen2-1.5b in bf16, else cut to 2 x 2 with 16;
+# the host tier 256 MiB
+POL_PREFIX, POL_TAIL, POL_FAMILIES, POL_PER_FAMILY = 1024, (64, 192), 4, 4
+POL_GEN, POL_GEN_CUT, POL_HOST_BYTES = 32, 16, 256 << 20
 # The other dense decoders at full width, whole prefill only, on
-# qwen2-1.5b's queue cut to one wave (4 requests, 32 new tokens each)
+# qwen2-1.5b's queue cut to one wave (4 requests, 32 new tokens each);
+# llama3.2-3b at half its depth, to keep the script's time for phase 10
 DENSE_ARCHS, DENSE_LENS, DENSE_GEN = ("llama3.2-3b", "olmo-1b"), STEP_LENS, 32
+DENSE_DEPTH = {"llama3.2-3b": 14}
 # bf16 outputs: one bf16 ulp at |out| < 4, where a float32 result (or a
 # score rounded through bf16) that differs in its last bit rounds the other way
 ATOL_BF16 = 2e-2
@@ -1794,27 +1836,68 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
+def time_hooks(eng, times: dict) -> None:
+    """Time each call of the engine's swap and host-tier hooks (host
+    clock, the card synchronised before and after) into ``times``."""
+    import torch
+    for name in ("swap_out", "swap_in", "spill_page", "restore_pages"):
+        def timed(*a, _fn=getattr(eng, name), _name=name, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(_name, []).append(time.perf_counter() - t)
+            return out
+        setattr(eng, name, timed)
+
+
 def serve_once(cfg, dev, params, dtype, mode: dict, reqs: list, ops=None,
                profile_reqs: list | None = None) -> dict:
     """One served run of ``reqs`` through the port's Scheduler on 4 slots
     with the launch counts set to 0 just before and read just after.
-    Returns the streams, the stats, tok/s, decode tok/s, TTFT p50/p99 and
-    the launches; with ``profile_reqs``, also the device time by kernel
-    of a profiled run of that queue on the same engine."""
+    ``mode`` holds the engine's and scheduler's options: ``slots``,
+    ``prefill_chunk``,
+    ``spec_k`` (with the n-gram drafter, or ``drafter="model"``: the
+    served model drafting for itself on its own engine, catching up in
+    chunks of ``prefill_chunk`` tokens), ``num_pages``,
+    ``prefix_cache``, ``preempt``, ``host_cache_bytes``; ``time_hooks``
+    times each swap and host-tier call. Returns the streams, their
+    digest, the stats, tok/s, decode tok/s, TTFT p50/p99 and the
+    launches; with ``profile_reqs``, also the device time by kernel of a
+    profiled run of that queue on the same engine."""
     import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.obs import Tracer, derive_request_metrics, percentiles
-    from repro_torch.serve import InferenceEngine, NgramDrafter, Scheduler
+    from repro_torch.serve import (
+        InferenceEngine, ModelDrafter, NgramDrafter, Scheduler, stream_digest,
+    )
     max_len = max(len(r.prompt) + r.max_new for r in reqs)
-    eng = InferenceEngine(cfg, slots=LM_SLOTS, max_len=max_len,
+    spec_k, slots = mode.get("spec_k", 0), mode.get("slots", LM_SLOTS)
+    eng = InferenceEngine(cfg, slots=slots, max_len=max_len,
                           page_size=16, dtype=dtype, device=dev,
                           prefill_chunk=mode.get("prefill_chunk", 0),
+                          num_pages=mode.get("num_pages"),
                           ops=ops or tfm.KERNELS)
+
+    def drafter():
+        if not spec_k:
+            return None
+        if mode.get("drafter") == "model":
+            return ModelDrafter(cfg, params=params, slots=slots,
+                                max_len=max_len + spec_k, page_size=16,
+                                catch_up_chunk=mode.get("prefill_chunk")
+                                or 16, dtype=dtype, device=dev)
+        return NgramDrafter()
 
     def sched_of(tracer=None):
         return Scheduler(eng, eng.init_state(params), tracer=tracer,
-                         spec_k=mode.get("spec_k", 0),
-                         drafter=NgramDrafter() if mode.get("spec_k") else None)
+                         spec_k=spec_k, drafter=drafter(),
+                         prefix_cache=mode.get("prefix_cache", False),
+                         preempt=mode.get("preempt", False),
+                         host_cache_bytes=mode.get("host_cache_bytes", 0))
+    hook_s: dict = {}
+    if mode.get("time_hooks"):
+        time_hooks(eng, hook_s)
     tracer = Tracer()
     sched = sched_of(tracer)
     torch.cuda.synchronize()
@@ -1827,6 +1910,7 @@ def serve_once(cfg, dev, params, dtype, mode: dict, reqs: list, ops=None,
     st = dict(sched.stats)
     ttft = [m["ttft_s"] for m in derive_request_metrics(tracer.events()).values()]
     out = {"gen": gen, "stats": st, "wall_s": wall,
+           "stream_digest": stream_digest(gen),
            "tok_per_s": sum(len(g) for g in gen.values()) / wall,
            "decode_tok_per_s": st["decode_tokens"] / max(st["decode_s"], 1e-9),
            "prefill_tok_per_s": st["prefill_tokens"] / max(st["prefill_s"], 1e-9),
@@ -1835,6 +1919,9 @@ def serve_once(cfg, dev, params, dtype, mode: dict, reqs: list, ops=None,
            "accepted_tok_per_step": st["decode_tokens"]
            / max(st["decode_slot_steps"], 1),
            "launches": launches}
+    if hook_s:
+        out["hook_ms"] = {k: 1e3 * sum(v) / len(v) for k, v in hook_s.items()}
+        out["hook_calls"] = {k: len(v) for k, v in hook_s.items()}
     if profile_reqs is not None:
         sched2 = sched_of()
         out["profile"] = device_breakdown(lambda: sched2.run(profile_reqs),
@@ -2080,17 +2167,21 @@ def lm_main_path(dev) -> dict:
     print(f"  qwen2-1.5b params: {nparams / 1e9:.3f} B, init "
           f"{time.perf_counter() - t0:.1f} s")
     reqs = lambda: requests_of(cfg.vocab_size, LM_LENS, LM_GEN)
+    # one wave of the queue (its first 4 requests, 32 new tokens): the
+    # profiled repeat and the bf16 streams against plain serve it
+    wave = lambda: requests_of(cfg.vocab_size, STEP_LENS, 32)
     modes = {"whole": {}, "chunked": {"prefill_chunk": LM_CHUNK},
              "spec": {"spec_k": LM_SPEC_K}}
     serve_once(cfg, dev, pbf, torch.bfloat16, {"prefill_chunk": LM_CHUNK},
-               reqs())
+               requests_of(cfg.vocab_size, LM_LENS[:2], 4))      # warm-up
     runs = {}
     for name, mode in modes.items():
-        # the profiled repeat only for whole prefill: the profiler's
-        # post-processing was most of this phase's time
+        # the profiled repeat only for whole prefill, on one wave: the
+        # profiler's post-processing of the whole queue's launches took
+        # most of this phase's time
         r = serve_once(cfg, dev, damped(cfg, pbf) if name == "spec" else pbf,
                        torch.bfloat16, mode, reqs(),
-                       profile_reqs=reqs() if name == "whole" else None)
+                       profile_reqs=wave() if name == "whole" else None)
         check_tokens(cfg, name, r, reqs())
         check_spec(cfg.name, name, r)
         check(r["launches"]["paged_attn"] > 0, f"{name}: paged_attn not launched")
@@ -2114,10 +2205,13 @@ def lm_main_path(dev) -> dict:
           f"argmax equal {bf['argmax_equal']}")
     check(rel <= REL_LOGITS_BF16, f"bf16 decode logits differ by {rel}")
     bf_plain = serve_once(cfg, dev, pbf, torch.bfloat16, modes["whole"],
-                          reqs(), ops=tfm.PLAIN)
+                          wave(), ops=tfm.PLAIN)
     check(not any(bf_plain["launches"].values()), "the plain run launched")
-    share = same_tokens(runs["whole"]["gen"], bf_plain["gen"])
-    print(f"  bf16 whole-prefill streams, kernel vs plain: {share:.3f} equal")
+    # the wave is the queue's first 4 requests, served in the same batch
+    # for its 32 steps: held against the kernel run's first 32 tokens
+    share = same_tokens(bf_plain["gen"], runs["whole"]["gen"])
+    print(f"  bf16 whole-prefill streams (one wave), kernel vs plain: "
+          f"{share:.3f} equal")
     del pbf
     # fp32 on the main path's weights: the reference's init law makes the
     # 28-layer model chaotic (attention scores in the hundreds), so two
@@ -2390,6 +2484,8 @@ def dense_main_path(arch: str, dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
     cfg = get_config(arch)
+    if arch in DENSE_DEPTH:
+        cfg = cfg.replace(num_layers=DENSE_DEPTH[arch])
     t0 = time.perf_counter()
     pbf = init_params(cfg, dev, torch.bfloat16)
     torch.cuda.synchronize()
@@ -2441,6 +2537,333 @@ def dense_main_path(arch: str, dev) -> dict:
     print("  " + json.dumps({arch: run_summary({"whole": r}),
                              "bf16_logits": logits, "fp32": checked}))
     return {"launches": {"whole": r["launches"]}, "profile": None}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: serving policies at full width
+# ---------------------------------------------------------------------------
+POLICY_KEYS = ("prefix_lookups", "prefix_hits", "prefix_hit_tokens",
+               "cow_pages", "host_hits", "host_hit_tokens",
+               "host_spilled_pages", "host_restored_pages",
+               "host_evicted_pages", "preemptions", "restores",
+               "deferred_admissions", "max_defer_cycles")
+SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95, "rep_penalty": 1.1}
+
+
+def family_queue(vocab: int, families: int, per_family: int, gen: int,
+                 prefix: int = POL_PREFIX, sampled: bool = False) -> list:
+    """Shared-prefix families (request i of family i % families): each a
+    ``prefix``-token system prompt and a ragged seeded tail of
+    POL_TAIL tokens, ``gen`` new tokens each; ``sampled``: SAMPLED with
+    one seed a request, else greedy."""
+    import numpy as np
+    from repro_torch.serve import Request, SamplingParams
+    rng = np.random.default_rng(LM_SEED)
+    pres = [rng.integers(0, vocab, prefix) for _ in range(families)]
+    out = []
+    for i in range(families * per_family):
+        tail = rng.integers(0, vocab, int(rng.integers(*POL_TAIL) + 1))
+        sp = SamplingParams(**SAMPLED, seed=1000 + i) if sampled \
+            else SamplingParams()
+        out.append(Request(rid=i, max_new=gen, sampling=sp,
+                           prompt=np.concatenate([pres[i % families], tail])
+                           .astype(np.int32)))
+    return out
+
+
+def request_pages(reqs: list) -> int:
+    """Pages of the largest request of ``reqs`` (claimed at admission)."""
+    return max(-(-(len(r.prompt) + r.max_new) // 16) for r in reqs)
+
+
+def print_policy_run(arch, name, r) -> None:
+    st = r["stats"]
+    hooks = r.get("hook_ms", {})
+    print(f"  {arch} {name}: {r['tok_per_s']:.1f} tok/s, decode "
+          f"{r['decode_tok_per_s']:.1f} tok/s, TTFT p50 {r['ttft_p50_s']:.4f}"
+          f" s p99 {r['ttft_p99_s']:.4f} s, wall {r['wall_s']:.3f} s, "
+          f"launches { {k: v for k, v in r['launches'].items() if v} }, "
+          f"digest {r['stream_digest']}, stats "
+          f"{ {k: st[k] for k in POLICY_KEYS + ('prefill_chunks', 'spec_proposed', 'spec_accepted') if st[k]} }"
+          + (f", host ms a call "
+             f"{ {k: round(v, 3) for k, v in hooks.items()} } over "
+             f"{r['hook_calls']} calls" if hooks else ""))
+
+
+def check_launches(arch, name, r, need, never) -> None:
+    for k in need:
+        check(r["launches"][k] > 0, f"{arch} {name}: {k} not launched")
+    for k in never:
+        check(r["launches"][k] == 0,
+              f"{arch} {name}: {k} launched {r['launches'][k]} times")
+
+
+def compare_streams(arch, what, got, want, exact: bool) -> dict:
+    """Equal streams where ``exact`` (fp32), else the share of equal
+    tokens and the first parting (bf16), printed."""
+    same = got["gen"] == want["gen"]
+    row = {"equal": same, "equal_share": same_tokens(got["gen"], want["gen"]),
+           "first_parting": first_parting(got["gen"], want["gen"])}
+    print(f"  {arch} {what}: streams equal {same}, share "
+          f"{row['equal_share']:.3f}, first parting {row['first_parting']}")
+    if exact:
+        check(same, f"{arch} {what}: streams differ")
+    return row
+
+
+def policy_runs(cfg, dev, params, spec_params, dtype, case: dict,
+                checked: bool) -> dict:
+    """Serve one model's policy runs for ``case`` (a POLICY_CASES entry):
+    greedy cold, off device-tier hits on an ample pool, off host-tier hits
+    on the tight pool (hooks timed), defer-only and preempt on the
+    preemption queue (hooks timed); where ``sampled``, the sampled family
+    queue whole, chunked, with spec_k=3, preempted and off prefix hits;
+    then spec_k=3 with the model drafting for itself, on ``spec_params``
+    (bf16: the damped weights, on which drafts are accepted), beside the
+    same queue without speculation where ``spec_params`` are not
+    ``params``. Each run with its own launch counts; where ``checked``
+    (fp32), the host-hit and preempt runs hold every launch against the
+    plain version (``checked_ops``: the run then takes the plain
+    results), its calls and largest error under ``checked``."""
+    v = cfg.vocab_size
+    fams, per, gen = case["families"], case["per_family"], case["gen"]
+    queues = {
+        "family": lambda: family_queue(v, fams, per, gen),
+        "cut": lambda: family_queue(v, 2, 2, POL_GEN_CUT),
+        "sampled": lambda: family_queue(v, 2, 2, POL_GEN_CUT, sampled=True),
+        "preempt": lambda: requests_of(v, case["preempt_lens"],
+                                       case["preempt_gen"])}
+    fam_pages = request_pages(queues["family"]())
+    cut_pages = request_pages(queues["cut"]())
+    chunk = {"prefill_chunk": LM_CHUNK}
+    # the prefix-cache runs take no more slots than their pool holds
+    # requests: a request that waits for pages rather than a slot is
+    # planned again every cycle, and the copied scheduler's plan walks the
+    # prompt's pages once for each length it tries, on the host
+    hits = dict(chunk, prefix_cache=True,
+                num_pages=case["device_pool"] * fam_pages,
+                slots=min(case["device_pool"], LM_SLOTS))
+    pre = dict(chunk, num_pages=case["preempt_pool"]
+               * request_pages(queues["preempt"]()))
+    plan = [("cold", "family", chunk)]
+    if case["device_pool"]:
+        plan.append(("device hits", "family", hits))
+    plan += [
+        ("host hits", "family", dict(
+            chunk, prefix_cache=True, num_pages=case["tight"] * fam_pages,
+            slots=case["tight"], host_cache_bytes=POL_HOST_BYTES,
+            time_hooks=True, checked=checked)),
+        ("defer-only", "preempt", pre),
+        ("preempt", "preempt", dict(pre, preempt=True, time_hooks=True,
+                                    checked=checked)),
+    ]
+    if case["sampled"]:     # on the cut family queue
+        plan += [
+            ("sampled whole", "sampled", {}),
+            ("sampled chunked", "sampled", chunk),
+            ("sampled spec", "sampled", dict(chunk, spec_k=LM_SPEC_K)),
+            ("sampled preempt", "sampled", dict(
+                chunk, num_pages=2 * cut_pages, preempt=True)),
+            ("sampled prefix hits", "sampled", dict(
+                chunk, prefix_cache=True, num_pages=2 * cut_pages, slots=2)),
+        ]
+        if spec_params is not params:
+            plan.append(("cut", "cut", dict(chunk, spec=True)))
+        plan.append(("model drafter", "cut", dict(
+            chunk, spec_k=LM_SPEC_K, drafter="model", spec=True)))
+    runs = {}
+    for name, q, mode in plan:
+        ops = checked_ops() if mode.get("checked") else None
+        r = serve_once(cfg, dev, spec_params if mode.get("spec") else params,
+                       dtype, mode, queues[q](), ops=ops)
+        check_tokens(cfg, name, r, queues[q]())
+        if ops:
+            r["checked"] = {k: {"calls": c.calls, "max_rel_err": c.max_rel}
+                            for k, c in ops._asdict().items() if c.calls}
+        runs[name] = r
+    return runs
+
+
+def policy_checks(arch, runs: dict, full: bool, exact: bool) -> None:
+    """The policy counts each run must show: the full queues' thresholds
+    where ``full``, the cut queues' (hits, spills, preemptions) else.
+    The checked runs' launches within REL_F32 of the plain version's
+    (paged_attn checked in each, conv1d too for recurrentgemma-2b); where
+    ``exact`` (fp32), the model drafter (the served model drafting for
+    itself, whose chunked catch-up and verify agree in float32) proposes
+    and has every draft accepted."""
+    hits = 12 if full else 1
+    for name in ("device hits", "host hits"):
+        st = runs.get(name, {}).get("stats")
+        check(st is None or (st["prefix_hits"] >= hits and
+                             st["prefix_hit_tokens"] >= hits * POL_PREFIX),
+              f"{arch} {name}: {st and st['prefix_hits']} hits, "
+              f"{st and st['prefix_hit_tokens']} tokens")
+    st = runs["host hits"]["stats"]
+    least = 64 if full else 1
+    check(st["host_hits"] >= 1 and st["host_spilled_pages"] >= least
+          and st["host_restored_pages"] >= least,
+          f"{arch} host hits: {st['host_hits']} hits, "
+          f"{st['host_spilled_pages']} spilled, "
+          f"{st['host_restored_pages']} restored pages")
+    st, base = runs["preempt"]["stats"], runs["defer-only"]["stats"]
+    check(st["preemptions"] >= 1 and st["restores"] == st["preemptions"]
+          and base["deferred_admissions"] > 0,
+          f"{arch} preempt: {st['preemptions']} preemptions, "
+          f"{st['restores']} restores, defer-only deferred "
+          f"{base['deferred_admissions']}")
+    for name, r in runs.items():
+        if "checked" not in r:
+            continue
+        c = r["checked"]
+        print(f"  {arch} {name}, every launch held against the plain "
+              f"version: " + ", ".join(
+                  f"{k} {v['calls']} launches, max error "
+                  f"{v['max_rel_err']:.3e}" for k, v in c.items())
+              + f" of the output's largest |value| (tolerance {REL_F32})")
+        for k in POLICY_LAUNCHES[arch][0]:
+            check(k in c, f"{arch} {name}: no {k} launch was checked")
+        check(all(v["max_rel_err"] <= REL_F32 for v in c.values()),
+              f"{arch} {name}: a kernel differs from plain: {c}")
+    drafted = runs.get("model drafter", {}).get("stats")
+    if drafted and exact:
+        check(drafted["spec_proposed"] > 0 and
+              drafted["spec_accepted"] == drafted["spec_proposed"],
+              f"{arch} model drafter: {drafted['spec_accepted']} of "
+              f"{drafted['spec_proposed']} drafts accepted")
+    if "sampled preempt" in runs:
+        st = runs["sampled preempt"]["stats"]
+        check(st["preemptions"] >= 1, f"{arch} sampled preempt: no preemption")
+        st = runs["sampled prefix hits"]["stats"]
+        check(st["prefix_hits"] >= 1, f"{arch} sampled prefix hits: none")
+
+
+def policy_streams(arch, runs: dict, exact: bool) -> dict:
+    """Streams that must agree: the hits and host hits with cold,
+    preempt with defer-only, every sampled run (digest) with sampled
+    whole, the model drafter's with the cut queue's on its weights."""
+    out = {}
+    base = "cut" if "cut" in runs else "cold"
+    for a, b in (("device hits", "cold"), ("host hits", "cold"),
+                 ("preempt", "defer-only"), ("model drafter", base)):
+        if a in runs:
+            out[f"{a} vs {b}"] = compare_streams(arch, f"{a} vs {b}",
+                                                 runs[a], runs[b], exact)
+    digests = {n: r["stream_digest"] for n, r in runs.items()
+               if n.startswith("sampled")}
+    if digests:
+        print(f"  {arch} sampled digests: {digests}")
+        out["sampled_digests"] = digests
+        if exact:
+            check(len(set(digests.values())) == 1,
+                  f"{arch} sampled digests differ: {digests}")
+    return out
+
+
+def page_bytes(cfg) -> int:
+    """Bytes of one page's blob (every layer's k, v and pos rows) in
+    bf16."""
+    from repro_torch.configs import ATTN_GLOBAL, ATTN_LOCAL
+    attn = sum(k in (ATTN_GLOBAL, ATTN_LOCAL) for k in cfg.layer_kinds())
+    return attn * 16 * (2 * cfg.num_kv_heads * cfg.resolved_head_dim() * 2 + 4)
+
+
+# Phase 10's runs by model and dtype: the family queue (families x
+# per_family, gen new tokens), the preemption queue, and the pools in
+# requests of the family queue: ``device_pool`` for the device-tier hits
+# (the full queue's: every family's cached prefix beside 4 active
+# requests; a cut queue's: 2, so that a family's second request is
+# admitted after its first and hits it), ``tight`` for the host tier
+# (each cross-family admission then reclaims, and so spills, another
+# family's cached prefix), ``preempt_pool`` for preemption (in requests
+# of the preemption queue); then whether the sampled and model-drafter
+# runs are served (on the cut queue, in both dtypes). fp32 serves the cut
+# queues. recurrentgemma-2b takes no device-tier run (``device_pool`` 0):
+# its host-tier run resumes from the recurrent snapshots as well; it is
+# served in fp32 alone (a bf16 run of the same cut queues holds nothing:
+# its streams part between tiers, which fp32 holds equal).
+_CUT = dict(families=2, per_family=2, gen=POL_GEN_CUT, preempt_lens=STEP_LENS,
+            preempt_gen=POL_GEN_CUT, device_pool=2, tight=1, preempt_pool=2)
+POLICY_CASES = {
+    ("qwen2-1.5b", "bf16"): dict(
+        families=POL_FAMILIES, per_family=POL_PER_FAMILY, gen=POL_GEN,
+        preempt_lens=LM_LENS, preempt_gen=LM_GEN,
+        device_pool=POL_FAMILIES + LM_SLOTS, tight=2, preempt_pool=3,
+        sampled=True),
+    ("qwen2-1.5b", "fp32"): dict(_CUT, sampled=True),
+    ("recurrentgemma-2b", "fp32"): dict(_CUT, device_pool=0, sampled=False),
+}
+# what every phase-10 run must launch (> 0) and must not (0): 128-token
+# chunks admit every greedy prompt, so local_attn stays 0
+POLICY_LAUNCHES = {
+    "qwen2-1.5b": ({"paged_attn"},
+                   {"conv1d", "ssd_chunk", "local_attn"} | _DOMST),
+    "recurrentgemma-2b": ({"paged_attn", "conv1d"},
+                          {"ssd_chunk", "local_attn"} | _DOMST),
+}
+
+
+def policy_main_path(dev) -> dict:
+    """Phase 10: the serving policies at full width (16-token pages, 4
+    slots, 128-token chunks; weights from the port's init, seed 0), by
+    POLICY_CASES. qwen2-1.5b in bf16 on 4 shared-prefix families x 4
+    requests (a 1,024-token prefix, 64-192-token tails, 32 new tokens):
+    cold, off device-tier prefix hits, off host-tier hits, preemption
+    against defer-only on phase 5's 8 x 512 queue, then on the cut family
+    queue (2 x 2, 16 new tokens) sampled whole, chunked, with spec_k=3,
+    preempted and off prefix hits, and spec_k=3 with the model drafting
+    for itself. Launch counts, the stats thresholds, tok/s, TTFT by tier
+    and the hooks' host time a call; bf16 streams' share of equal tokens.
+    Then the same in fp32 on the rescaled weights and the cut queues, and
+    recurrentgemma-2b in fp32 on the cut family queue cold and off
+    host-tier hits, and preemption against defer-only on phase 6's
+    512-token queue: each launch of the host-hit and preempted runs held
+    against the plain version, the streams equal, the sampled digests
+    one, every self-draft accepted."""
+    import torch
+    from repro_torch.configs import get_config
+    out = {"launches": {}}
+    for (arch, tag), case in POLICY_CASES.items():
+        cfg = get_config(arch)
+        first = arch not in out
+        dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+        params = init_params(cfg, dev, dtype if tag == "bf16" else None)
+        if tag == "fp32":
+            params = well_conditioned(cfg, params)
+        if first:   # warm-up: the model's first calls, the hooks'
+            warm = requests_of(cfg.vocab_size, [300, 290, 280], 4)
+            serve_once(cfg, dev, params, dtype, dict(
+                prefill_chunk=LM_CHUNK, prefix_cache=True, preempt=True,
+                num_pages=request_pages(warm),
+                host_cache_bytes=POL_HOST_BYTES), warm)
+        stamp(f"{arch} {tag} params ready")
+        spec_params = damped(cfg, params) if tag == "bf16" else params
+        exact = tag == "fp32"
+        runs = policy_runs(cfg, dev, params, spec_params, dtype, case,
+                           checked=exact)
+        need, never = POLICY_LAUNCHES[arch]
+        for name, r in runs.items():
+            check_launches(arch, f"{tag} {name}", r, need, never)
+            print_policy_run(arch, f"{tag} {name}", r)
+        policy_checks(arch, runs, full=(arch, tag) == ("qwen2-1.5b", "bf16"),
+                      exact=exact)
+        streams = policy_streams(arch, runs, exact=exact)
+        out.setdefault(arch, {})[tag] = {
+            "runs": run_summary(runs), "streams": streams,
+            "stats": {n: {k: r["stats"][k] for k in POLICY_KEYS}
+                      for n, r in runs.items()}}
+        if first:   # the main path's counts: the model's first dtype's
+            out["launches"].update({f"{arch} {n}": r["launches"]
+                                    for n, r in runs.items()
+                                    if "checked" not in r})
+            print(f"  {arch} page blob: {page_bytes(cfg)} bytes a page "
+                  "in bf16")
+        del params, spec_params
+        torch.cuda.empty_cache()
+        stamp(f"{arch} {tag} policy runs done")
+    print("  " + json.dumps({k: v for k, v in out.items()
+                             if k != "launches"}))
+    return {"launches": out["launches"], "profile": None}
 
 
 def _leaves(tree):
@@ -2558,6 +2981,8 @@ def main() -> int:
     for arch in DENSE_ARCHS:
         print(f"[9] main path: paged serving, {arch}, whole prefill (at {time.perf_counter() - T_START:.0f} s)")
         by_model[arch] = dense_main_path(arch, dev)
+    print(f"[10] main path: serving policies, qwen2-1.5b and recurrentgemma-2b (at {time.perf_counter() - T_START:.0f} s)")
+    by_model["policies"] = policy_main_path(dev)
     for res in by_model.values():
         for counts in res["launches"].values():
             for name, c in counts.items():
@@ -2580,7 +3005,7 @@ def main() -> int:
             arch: device_ms_per_launch(res["profile"]).get(k["name"])
             for arch, res in by_model.items()
             if arch in k["launches_by_mode"] and res["profile"]}
-    print(f"[10] all phases passed in {time.perf_counter() - T_START:.1f} s")
+    print(f"[11] all phases passed in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,9 @@ reference's unstacked state has none. Restoring goes through an
 *example* in the port's layout (the usual restore-into-init pattern):
 each entry is read, repacked by ``convert.to_port_layout`` and checked
 against the example's shape, so one checkpoint file drives both packages.
+An LM's ``params`` restore from the reference's key paths (its scanned
+``blocks`` stacked over the repetitions) into the port's per-layer tree
+(``restore_lm_params``).
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.convert import from_port_layout, to_port_layout
+from repro_torch.convert import (
+    from_port_layout, lm_params_from_jax, to_port_layout,
+)
 
 # a ``repro_torch.train.TrainState``; not imported, since the training
 # engine imports this module
@@ -105,3 +110,47 @@ def restore_subtree(path: str, example: Dict[str, torch.Tensor],
     with np.load(path) as data:
         return {key: _read(data, pre + key, key, ex, False)
                 for key, ex in example.items()}
+
+
+def restore_lm_params(path: str, example: Dict[str, Any],
+                      prefix: str) -> Dict[str, Any]:
+    """The reference's LM params under ``prefix/`` (``embed/...``,
+    ``final_norm/...``, ``blocks/<i>/...`` stacked over the repetitions,
+    ``prefix/<j>/...``, ``suffix/<j>/...``) unstacked into the port's
+    per-layer tree (``example``, as ``transformer.init`` builds it) by
+    ``convert.lm_params_from_jax``, then shaped, typed and placed as
+    ``example``. ``prefix=""`` reads the whole file."""
+    pre = f"{prefix}/" if prefix else ""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for name in data.files:
+            if not name.startswith(pre):
+                continue
+            node = tree
+            parts = name[len(pre):].split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[name]
+    for group in ("prefix", "suffix"):
+        if group in tree:
+            tree[group] = [tree[group][k] for k in sorted(tree[group], key=int)]
+    got = lm_params_from_jax(tree)
+
+    def place(g, ex, where):
+        if isinstance(ex, dict):
+            missing = set(ex) - set(g)
+            if missing:
+                raise KeyError(f"checkpoint missing '{pre}{where}"
+                               f"{sorted(missing)[0]}'")
+            return {k: place(g[k], v, f"{where}{k}/") for k, v in ex.items()}
+        if isinstance(ex, list):
+            if len(g) != len(ex):
+                raise ValueError(f"checkpoint has {len(g)} layers, the "
+                                 f"example {len(ex)}")
+            return [place(a, b, f"{where}{i}/") for i, (a, b) in
+                    enumerate(zip(g, ex))]
+        if tuple(g.shape) != tuple(ex.shape):
+            raise ValueError(f"shape mismatch for '{pre}{where[:-1]}': ckpt "
+                             f"{tuple(g.shape)} vs example {tuple(ex.shape)}")
+        return g.to(dtype=ex.dtype, device=ex.device).contiguous()
+    return place(got, example, "")

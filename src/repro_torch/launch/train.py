@@ -23,7 +23,9 @@ its params.
 
 It prints the reference's per-epoch lines and final JSON record, plus the
 device. Runs on the card unless ``--device cpu`` is given; without a card
-it raises. LM training is not ported yet (ROADMAP Queue A).
+it raises. ``--profile-dir DIR`` writes a ``torch.profiler`` trace of
+the run to ``DIR/trace.json``. LM training is not ported yet (ROADMAP
+Queue A).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch domst
   PYTHONPATH=src python -m repro_torch.launch.train --arch domst \\
@@ -50,7 +52,7 @@ from repro_torch.data.pipeline import (
 )
 from repro_torch.device import device_name
 from repro_torch.metrics import Meter
-from repro_torch.obs import MetricRegistry
+from repro_torch.obs import MetricRegistry, profiler
 from repro_torch.train import Engine
 
 
@@ -212,12 +214,16 @@ def main(argv=None) -> dict:
                     help="dump the metric registry as JSONL (per-step "
                          "timing histogram train.step_s, loader-wait "
                          "histogram/gauge, metered loss)")
+    ap.add_argument("--profile-dir", default="",
+                    help="open a torch.profiler window around the run and "
+                         "write its trace to DIR/trace.json")
     args = ap.parse_args(argv)
     if not args.arch.startswith("domst"):
         raise NotImplementedError(
             f"--arch {args.arch}: LM training is not ported yet (ROADMAP "
             "Queue A); the port trains the Dom-ST variants")
-    return train_domst(args)
+    with profiler.profile(args.profile_dir):
+        return train_domst(args)
 
 
 if __name__ == "__main__":

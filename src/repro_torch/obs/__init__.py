@@ -1,6 +1,7 @@
-"""Telemetry: metric registry and request-lifecycle tracer, copies of the
-reference's host-side ``repro/obs`` modules. The reference's
-``jax.profiler`` hooks (``obs/profiler.py``) are not ported yet."""
+"""Telemetry: metric registry, request-lifecycle tracer and the optional
+``torch.profiler`` hooks, ports of the reference's host-side
+``repro/obs`` modules (its profiler wraps ``jax.profiler``)."""
+from repro_torch.obs import profiler  # noqa: F401
 from repro_torch.obs.registry import (  # noqa: F401
     Counter, Gauge, Histogram, MetricRegistry, Series, StatGroup, percentiles,
 )

@@ -4,7 +4,9 @@ from repro_torch.serve.sampling import SamplingParams, stream_digest  # noqa: F4
 from repro_torch.serve.scheduler import (  # noqa: F401
     PagePool, Request, Scheduler,
 )
-from repro_torch.serve.speculative import Drafter, NgramDrafter  # noqa: F401
+from repro_torch.serve.speculative import (  # noqa: F401
+    Drafter, ModelDrafter, NgramDrafter,
+)
 from repro_torch.serve.state import (  # noqa: F401
     InferenceState, new_paged_inference_state,
 )

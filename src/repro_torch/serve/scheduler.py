@@ -2,14 +2,14 @@
 
 A copy of the reference's ``repro/serve/scheduler.py`` (host code: numpy,
 no JAX), driving the port's :class:`~repro_torch.serve.engine.
-InferenceEngine` through the same engine surface. The port's engine does
-not implement the prefix-cache, preemption and host-tier hooks yet
+InferenceEngine` through the same engine surface, policy hooks included
 (``copy_pages``, ``get/set_slot_state``, ``swap_out/swap_in``,
-``spill_page``, ``restore_pages`` raise ``NotImplementedError``), so the
-``prefix_cache``, ``preempt`` and ``host_cache_bytes`` branches below are
-reachable only through options the port's launcher does not take yet.
-Where the text says ``jax.device_get``, the port's engine copies from the
-card with ``Tensor.cpu()``.
+``spill_page``, ``restore_pages``, ``set_sampling``), so every branch
+below — the prefix cache, preemption, the host tier, sampling and both
+drafters — runs on the port; the launcher reaches them through
+``--prefix-cache``, ``--preempt``, ``--host-cache-mb``, the sampling
+flags and ``--drafter``. Where the text says ``jax.device_get``, the
+port's engine copies from the card with ``Tensor.cpu()``.
 
 The scheduler owns the batching POLICY the engine deliberately excludes:
 admit a pending request into any free slot, run the fused all-slot decode

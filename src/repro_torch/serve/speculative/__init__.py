@@ -1,3 +1,3 @@
 from repro_torch.serve.speculative.drafter import (  # noqa: F401
-    Drafter, NgramDrafter,
+    Drafter, ModelDrafter, NgramDrafter,
 )

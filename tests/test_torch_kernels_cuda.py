@@ -243,6 +243,77 @@ def test_paged_attn_split_edges(dev, monkeypatch, dtype, atol, T, Hq, Hkv, D,
     assert not out[1].any()            # slot 1 has no page
 
 
+def _shared_rows_case(g, dev, dtype, T, Hq, Hkv, D, ps, shared, tails):
+    """The page rows the serving policies leave: a shared prefix of
+    ``shared`` pages read through every slot's row in one launch, slot 1's
+    last shared page a copy-on-write copy under another id (same k, v and
+    pos), each slot's own tail pages at ids that are neither ascending nor
+    contiguous (every other id unused), and queries at the last T
+    positions of each slot: slot 0 a chunk resuming right after the shared
+    prefix (mid-prompt, over cached pages)."""
+    P = 4 * (shared + max(tails)) + shared + 8
+    ids = torch.randperm(P // 2, generator=g) * 2          # even ids only
+    it = iter(ids.tolist())
+    pre = [next(it) for _ in range(shared)]
+    lens = [shared * ps + t for t in tails]
+    n = max(-(-l // ps) for l in lens)
+    rows = torch.full((4, n), -1, dtype=torch.int32)
+    pos = torch.full((P, ps), -1, dtype=torch.int32)
+    for j, p in enumerate(pre):
+        pos[p] = torch.arange(j * ps, (j + 1) * ps)
+    k = _rn(g, dev, P, ps, Hkv, D)
+    v = _rn(g, dev, P, ps, Hkv, D)
+    cow = next(it)
+    k[cow], v[cow], pos[cow] = k[pre[-1]], v[pre[-1]], pos[pre[-1]]
+    for b, l in enumerate(lens):
+        row = pre[:-1] + ([cow] if b == 1 else pre[-1:])
+        for j in range(shared, -(-l // ps)):
+            p = next(it)
+            fill = min(ps, l - j * ps)
+            pos[p, :fill] = torch.arange(j * ps, j * ps + fill)
+            row.append(p)
+        rows[b, :len(row)] = torch.tensor(row, dtype=torch.int32)
+    qpos = torch.stack([torch.arange(l - T, l) for l in lens])
+    qpos[0] = torch.arange(shared * ps, shared * ps + T)
+    return dict(q=_rn(g, dev, 4, T, Hq, D).to(dtype), k_pool=k.to(dtype),
+                v_pool=v.to(dtype), pos_pool=pos.to(dev),
+                page_rows=rows.to(dev), qpos=qpos.to(torch.int32).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("T,Hq,Hkv,D,window,pps", [
+    (1, 12, 2, 128, 0, None),          # qwen2-1.5b decode
+    (4, 12, 2, 128, 0, None),          # verify, spec_k=3
+    (128, 12, 2, 128, 0, None),        # a chunk resuming at the prefix end
+    (1, 12, 2, 128, 0, 3),             # splits of 3 pages across the prefix
+    (128, 10, 1, 256, 2048, None),     # recurrentgemma-2b's local layers
+    (1, 10, 1, 256, 2048, 5),
+])
+def test_paged_attn_on_shared_cow_and_scattered_rows(dev, monkeypatch, dtype,
+                                                     atol, T, Hq, Hkv, D,
+                                                     window, pps):
+    """The kernel reads pages only through the rows: a prefix shared by
+    four slots' rows in one launch, a copy-on-write page, ids neither
+    ascending nor contiguous and a chunk that resumes mid-prompt over
+    cached pages give the plain version's output (float32 within 1e-5,
+    bfloat16 within 2e-2), with the wrapper's own split plan and with one
+    forced."""
+    from repro_torch.kernels.paged_attn import ops
+    from repro_torch.kernels.paged_attn.ref import paged_attention_ref
+    if pps is not None:
+        monkeypatch.setattr(ops, "plan_splits", lambda *a: pps)
+    g = torch.Generator().manual_seed(T * 10 + D + (pps or 0))
+    a = _shared_rows_case(g, dev, getattr(torch, dtype), T, Hq, Hkv, D, 16,
+                          64, [130, 70, 190, 64 + T])
+    before = ops.paged_attention_fused.launches
+    out = ops.paged_attention_fused(**a, window=window, softcap=0.0)
+    torch.cuda.synchronize()
+    assert ops.paged_attention_fused.launches == before + 1
+    ref = paged_attention_ref(**a, window=window, softcap=0.0)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
 @pytest.mark.cuda
 def test_paged_attn_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     from repro_torch.kernels.paged_attn.ops import paged_attention_fused

@@ -190,20 +190,48 @@ def test_first_decode_step_logits_bf16(monkeypatch):
     assert err <= REL_BF16 * np.abs(want).max(), (err, np.abs(want).max())
 
 
-def test_engine_hooks_not_ported_raise():
-    _, cfg = _cfgs()
+def test_engine_sampled_request_draws():
+    """A sampled request installs its rows and draws its first token at
+    the prompt's length with its own key, where the greedy slot takes the
+    argmax; the reference engine draws the same token."""
+    jcfg, cfg = _cfgs()
+    tree = _params("init")
+    prompt = np.arange(7, dtype=np.int32)[None] * 3
+    sp = SamplingParams(temperature=0.7, top_k=20, top_p=0.9, seed=5)
     eng = InferenceEngine(cfg, slots=SLOTS, dtype=torch.float32,
                           max_len=MAX_LEN, page_size=PS, device="cpu")
-    state = eng.init_state(tfm.init(cfg, torch.Generator().manual_seed(0)))
+    state = eng.init_state(params_from_jax(tree))
     assert eng.has_recurrent_state is False
-    for call in (lambda: eng.copy_pages(state, [0], [1]),
-                 lambda: eng.swap_out(state, 0, [0]),
-                 lambda: eng.spill_page(state, 0),
-                 lambda: eng.set_sampling(state, 0,
-                                          SamplingParams(temperature=0.7))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    assert eng.set_sampling(state, 0, SamplingParams()) is state
+    state = eng.set_sampling(state, 0, sp, prompt[0])
+    assert state.temp_host[0] == np.float32(0.7) and state.temp_host[1] == 0
+    np.testing.assert_array_equal(state.sample_key[0].numpy(),
+                                  sampling.base_key(5))
+    toks = []
+    for s in range(SLOTS):
+        state = eng.assign_pages(state, s, [2 * s, 2 * s + 1])
+        state, tok = eng.insert(state, {"tokens": prompt}, s)
+        toks.append(int(tok[0]))
+    logits, _ = tfm.prefill(state.params, cfg,
+                            {"tokens": torch.tensor(prompt)}, MAX_LEN,
+                            dtype=torch.float32)
+    assert toks[1] == int(logits.argmax())
+    want = sampling.draw(logits, keys=state.sample_key[:1],
+                         positions=torch.tensor([7], dtype=torch.int32),
+                         temperature=state.sample_temp[:1],
+                         top_k=state.sample_top_k[:1],
+                         top_p=state.sample_top_p[:1],
+                         rep_penalty=state.sample_rep[:1],
+                         presence=state.tok_presence[:1])
+    assert toks[0] == int(want[0])
+    jeng = JEngine(jcfg, mesh=_mesh(), slots=SLOTS, dtype=jnp.float32,
+                   max_len=MAX_LEN, paged=True, page_size=PS)
+    jstate = jeng.init_state(jax.tree.map(jnp.array, tree))
+    jstate = jeng.set_sampling(
+        jstate, 0, jsampling.SamplingParams(temperature=0.7, top_k=20,
+                                            top_p=0.9, seed=5), prompt[0])
+    jstate = jeng.assign_pages(jstate, 0, [0, 1])
+    _, jtok = jeng.insert(jstate, {"tokens": prompt}, 0)
+    assert toks[0] == int(np.asarray(jtok)[0])
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,11 @@
 """Shared by the served-slice parity tests of the recurrent and SSM archs
-(``test_torch_serve_mamba2.py``, ``test_torch_serve_recurrentgemma.py``):
-the reference's paged ``InferenceEngine`` and ``Scheduler`` against the
-port's, on the CPU at smoke size, from the same params.
+(``test_torch_serve_mamba2.py``, ``test_torch_serve_recurrentgemma.py``)
+and of the serving policies and the sampler
+(``test_torch_serve_policies.py``, ``test_torch_sampling.py``): the
+reference's paged ``InferenceEngine`` and ``Scheduler`` against the
+port's, on the CPU at smoke size, from the same params. ``serve_both``
+serves one queue (a list of request specs: prompt, ``max_new``, sampling
+fields) through both with any engine and scheduler options.
 
 The reference runs on a 1x1 mesh with Auto axes (jax 0.9 rejects its
 default explicit-sharding mesh), with its Pallas paged-attention kernel
@@ -29,12 +33,13 @@ from repro.models import transformer as jtfm
 from repro.serve import InferenceEngine as JEngine
 from repro.serve import NgramDrafter as JNgram
 from repro.serve import Request as JRequest
+from repro.serve import SamplingParams as JSamplingParams
 from repro.serve import Scheduler as JScheduler
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.convert import params_from_jax
 from repro_torch.models import transformer as tfm
 from repro_torch.serve import (
-    InferenceEngine, NgramDrafter, Request, Scheduler,
+    InferenceEngine, NgramDrafter, Request, SamplingParams, Scheduler,
 )
 
 LENS = [20, 5, 18, 6]
@@ -44,6 +49,10 @@ MODES = [{}, {"prefill_chunk": 3}, {"spec_k": 3}]
 MODE_IDS = ["whole", "chunked", "spec3"]
 STAT_KEYS = ("prefill_chunks", "spec_proposed", "spec_accepted",
              "decode_steps", "decode_tokens", "prefill_tokens")
+# the serving policies' counts, equal key by key between the two
+POLICY_KEYS = ("prefix_hits", "prefix_hit_tokens", "cow_pages",
+               "preemptions", "restores", "deferred_admissions",
+               "host_hits", "host_spilled_pages", "host_restored_pages")
 
 
 def cfgs(arch):
@@ -98,29 +107,21 @@ def check_served(arch, kind, mode):
 
 def serve_ref(arch, tree, prompt_list, *, gen=GEN, prefill_chunk=0,
               spec_k=0):
-    jcfg, _ = cfgs(arch)
-    eng = JEngine(jcfg, mesh=_mesh(), slots=SLOTS, dtype=jnp.float32,
-                  max_len=MAX_LEN, paged=True, page_size=PS,
-                  prefill_chunk=prefill_chunk)
-    state = eng.init_state(jax.tree.map(jnp.array, tree))
-    sched = JScheduler(eng, state, spec_k=spec_k,
-                       drafter=JNgram() if spec_k else None)
-    out = sched.run([JRequest(rid=i, max_new=gen, prompt=p)
-                     for i, p in enumerate(prompt_list)])
-    return out, dict(sched.stats)
+    return serve_ref_queue(
+        arch, tree, [spec(p, gen) for p in prompt_list],
+        engine_kw=dict(slots=SLOTS, max_len=MAX_LEN, page_size=PS,
+                       prefill_chunk=prefill_chunk),
+        sched_kw={"spec_k": spec_k}, drafter=JNgram() if spec_k else None)
 
 
 def serve_port(arch, tree, prompt_list, *, gen=GEN, prefill_chunk=0,
                spec_k=0):
-    _, cfg = cfgs(arch)
-    eng = InferenceEngine(cfg, slots=SLOTS, dtype=torch.float32,
-                          max_len=MAX_LEN, page_size=PS,
-                          prefill_chunk=prefill_chunk, device="cpu")
-    sched = Scheduler(eng, eng.init_state(params_from_jax(tree)),
-                      spec_k=spec_k, drafter=NgramDrafter() if spec_k else None)
-    out = sched.run([Request(rid=i, max_new=gen, prompt=p)
-                     for i, p in enumerate(prompt_list)])
-    return out, dict(sched.stats)
+    return serve_port_queue(
+        arch, tree, [spec(p, gen) for p in prompt_list],
+        engine_kw=dict(slots=SLOTS, max_len=MAX_LEN, page_size=PS,
+                       prefill_chunk=prefill_chunk),
+        sched_kw={"spec_k": spec_k},
+        drafter=NgramDrafter() if spec_k else None)
 
 
 def first_decode_logits_bf16(arch, tree):
@@ -155,3 +156,70 @@ def first_decode_logits_bf16(arch, tree):
                                   torch.tensor(pos), torch.tensor(table),
                                   torch.tensor(act), dtype=torch.bfloat16)
     return tl.float().numpy(), np.asarray(jl, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Any queue, any options, through both packages
+# ---------------------------------------------------------------------------
+def spec(prompt, max_new, **sampling):
+    """One request of a queue: prompt, budget and SamplingParams fields."""
+    return {"prompt": np.asarray(prompt, np.int32), "max_new": int(max_new),
+            "sampling": sampling}
+
+
+def _requests(specs, request, params):
+    return [request(rid=i, max_new=q["max_new"], prompt=q["prompt"].copy(),
+                    sampling=params(**q["sampling"]))
+            for i, q in enumerate(specs)]
+
+
+def ref_engine(arch, tree, **engine_kw):
+    jcfg, _ = cfgs(arch)
+    eng = JEngine(jcfg, mesh=_mesh(), dtype=jnp.float32, paged=True,
+                  **engine_kw)
+    return eng, eng.init_state(jax.tree.map(jnp.array, tree))
+
+
+def port_engine(arch, tree, **engine_kw):
+    _, cfg = cfgs(arch)
+    eng = InferenceEngine(cfg, dtype=torch.float32, device="cpu",
+                          **engine_kw)
+    return eng, eng.init_state(params_from_jax(tree))
+
+
+def serve_ref_queue(arch, tree, specs, *, engine_kw, sched_kw=None,
+                    drafter=None):
+    eng, state = ref_engine(arch, tree, **engine_kw)
+    sched = JScheduler(eng, state, drafter=drafter, **(sched_kw or {}))
+    return sched.run(_requests(specs, JRequest, JSamplingParams)), \
+        dict(sched.stats)
+
+
+def serve_port_queue(arch, tree, specs, *, engine_kw, sched_kw=None,
+                     drafter=None):
+    eng, state = port_engine(arch, tree, **engine_kw)
+    sched = Scheduler(eng, state, drafter=drafter, **(sched_kw or {}))
+    return sched.run(_requests(specs, Request, SamplingParams)), \
+        dict(sched.stats)
+
+
+def serve_both(arch, tree, specs, *, engine_kw, sched_kw=None,
+               drafters=(None, None), keys=POLICY_KEYS + STAT_KEYS):
+    """Serve ``specs`` through the reference and the port with the same
+    options (``drafters``: the reference's and the port's). The streams
+    and the scheduler counts ``keys`` must be equal, and no kernel may
+    launch on the CPU. Returns the port's (streams, stats)."""
+    before = [f.launches for f in tfm.KERNELS]
+    want, want_stats = serve_ref_queue(arch, tree, specs,
+                                       engine_kw=engine_kw,
+                                       sched_kw=sched_kw,
+                                       drafter=drafters[0])
+    got, got_stats = serve_port_queue(arch, tree, specs,
+                                      engine_kw=engine_kw,
+                                      sched_kw=sched_kw, drafter=drafters[1])
+    assert got == want
+    for key in keys:
+        assert got_stats[key] == want_stats[key], \
+            (key, got_stats[key], want_stats[key])
+    assert [f.launches for f in tfm.KERNELS] == before   # CPU: plain versions
+    return got, got_stats
