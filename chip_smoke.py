@@ -28,8 +28,9 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    (decode, verify and a 128-token prefill chunk of qwen2-1.5b and of
    recurrentgemma-2b's local layers, gemma2-2b's decode with its softcap
    of 50 on a local and a global layer, llama3.2-3b's (G=3) and olmo-1b's
-   (G=1) decode, plus small shapes with a window, a softcap, unassigned
-   pages and an empty row),
+   (G=1) decode, qwen3-moe-30b-a3b's decode and verify (G=8) and
+   deepseek-moe-16b's decode (G=1 on 16 KV heads), plus small shapes with
+   a window, a softcap, unassigned pages and an empty row),
    the causal conv1d (mamba2-130m's and recurrentgemma-2b's prefill and
    step shapes, C not a multiple of 128 or of the 8-channel vector, S=1
    and S=2 with a tail, S > 2,048, S < K-1, an input viewed at an odd
@@ -156,7 +157,9 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    launch of an fp32 whole-prefill run held against the plain version
    (2e-3);
 10. the serving policies at full width (16-token pages, 128-token
-   chunks, 4 slots; ``POLICY_CASES``): qwen2-1.5b in bf16 on 4
+   chunks, 4 slots; ``POLICY_CASES``) and half depth (``POL_DEPTH``:
+   qwen2-1.5b 14 of 28 layers, recurrentgemma-2b 13 of 26, the host tier
+   scaled to hold as many pages): qwen2-1.5b in bf16 on 4
    shared-prefix families x 4 requests (a 1,024-token system prompt,
    64-192-token tails, 32 new tokens) cold, off device-tier prefix hits
    (an ample pool; >= 12 hits and 12 x 1,024 hit tokens) and off
@@ -186,11 +189,31 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    the cold and defer-only ones, every sampled run must print one
    digest, and the model drafter's stream must equal the cold one with
    every draft accepted;
-11. one JSON line listing every ported kernel with its error, times, bound
+11. mixture-of-experts serving (``moe_main_path``): qwen3-moe-30b-a3b at
+   full width and depth (48 layers, d 2,048, 32 heads on 4 of 128 with QK
+   norm, 128 experts top 8 of 768, vocab 151,936; 30.5 B params, drawn
+   leaf by leaf in bf16: 61 GB) on one wave (prompts of 512/510/508/506
+   tokens, 32 new each) whole, in 128-token chunks and, last, with
+   ``spec_k=3`` on weights damped in place (an untied model gets its
+   embedding as its unembedding, so that it repeats itself): launch
+   counts (paged_attn > 0, the others 0), tok/s, decode tok/s, TTFT
+   p50/p99, the decode step against its device floor (every routed
+   expert read once), the peak memory, a profiled repeat of whole prefill
+   with 8 new tokens, and the bf16 streams of kernel against plain with
+   their first parting and the routing flips between the two runs
+   (``Routes``); then the same model at 4 of its 48 layers in fp32, in
+   the three modes: every paged_attn launch held against the plain
+   version (2e-3) and the greedy streams equal to the plain run's, on
+   rescaled weights (spec damped); then deepseek-moe-16b at full width
+   and depth (28 layers, the first dense, 64 experts top 6 and 2 shared,
+   16 heads on 16; 32.75 GB) by whole prefill of the wave, and one bf16
+   decode step's logits, kernel against plain, printed on the main
+   weights and held within 2^-5 on the rescaled ones;
+12. one JSON line listing every ported kernel with its error, times, bound
    and launches (by model and mode; Pix-Con and the LSTM step by path,
    forecast and training, with their times at the training shapes), then
    the line with the card's name and power limit;
-12. the last line, ``{"ok": true, "device": {...}}``.
+13. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card. ``torch.compile`` (the flex_attention yardstick)
 keeps its caches under ``build/`` and compiles in this process. Without CUDA, or run from a directory that does not
@@ -270,11 +293,22 @@ SERVED_RUNS = {
 # the host tier 256 MiB
 POL_PREFIX, POL_TAIL, POL_FAMILIES, POL_PER_FAMILY = 1024, (64, 192), 4, 4
 POL_GEN, POL_GEN_CUT, POL_HOST_BYTES = 32, 16, 256 << 20
+# and at half depth, to keep the whole run under 600 s with phase 11; the
+# host tier is scaled with the page blob (``page_bytes``), so that it holds
+# as many pages as at full depth
+POL_DEPTH = {"qwen2-1.5b": 14, "recurrentgemma-2b": 13}
 # The other dense decoders at full width, whole prefill only, on
 # qwen2-1.5b's queue cut to one wave (4 requests, 32 new tokens each);
 # llama3.2-3b at half its depth, to keep the script's time for phase 10
 DENSE_ARCHS, DENSE_LENS, DENSE_GEN = ("llama3.2-3b", "olmo-1b"), STEP_LENS, 32
 DENSE_DEPTH = {"llama3.2-3b": 14}
+# Phase 11, mixture-of-experts serving: qwen3-moe-30b-a3b at full width and
+# depth (48 layers, 30.5 B params, 61 GB in bf16) on one wave (4 requests
+# of 512/510/508/506 tokens, 32 new each) in three modes, its profiled
+# repeat the wave with 8 new tokens; the same model at 4 of its 48 layers
+# in float32 for the per-launch and stream checks; deepseek-moe-16b at full
+# width and depth by whole prefill of the same wave
+MOE_LENS, MOE_GEN, MOE_PROFILE_GEN, MOE_F32_DEPTH = STEP_LENS, 32, 8, 4
 # bf16 outputs: one bf16 ulp at |out| < 4, where a float32 result (or a
 # score rounded through bf16) that differs in its last bit rounds the other way
 ATOL_BF16 = 2e-2
@@ -1162,10 +1196,12 @@ def check_paged_attn(g, dev) -> dict:
     pages a slot), all with 16-token pages; gemma2-2b's decode (8 on 4,
     D=256, softcap 50, a local layer's window of 4,096 and a global
     layer's none, 290 pages a slot); llama3.2-3b's (24 on 8) and olmo-1b's
-    (16 on 16) decode, D=128; and at small shapes with a window, a
-    softcap, unassigned pages and an empty row. Then times at the main
-    shapes, with the host time of a call and the device time of a launch
-    at gemma2's, llama3.2's and olmo's."""
+    (16 on 16) decode, D=128; qwen3-moe-30b-a3b's decode and verify (32
+    on 4) and deepseek-moe-16b's decode (16 on 16), D=128; and at small
+    shapes with a window, a softcap, unassigned pages and an empty row.
+    Then times at the main shapes, with the host time of a call and the
+    device time of a launch at gemma2's, llama3.2's, olmo's and the MoE
+    decoders'."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attn.ops import (
@@ -1212,6 +1248,18 @@ def check_paged_attn(g, dev) -> dict:
     main.update({
         "l32_decode": dict(B=4, T=1, lens=dense_mid, Hq=24, Hkv=8, **dense),
         "olmo_decode": dict(B=4, T=1, lens=dense_mid, Hq=16, Hkv=16, **dense)})
+    # the MoE decoders, mid-way through phase 11's wave: qwen3-moe-30b-a3b
+    # (32 query heads on 4, G=8: 8 query rows a (slot, KV head) in decode,
+    # 32 in verify) and deepseek-moe-16b (16 on 16, G=1), D=128
+    moe_attn = dict(D=128, ps=16, window=0, softcap=0.0,
+                    n=-(-(max(MOE_LENS) + MOE_GEN) // 16))
+    moe_mid = [n + MOE_GEN // 2 for n in MOE_LENS]
+    main.update({
+        "q3_decode": dict(B=4, T=1, lens=moe_mid, Hq=32, Hkv=4, **moe_attn),
+        "q3_verify": dict(B=4, T=LM_SPEC_K + 1, lens=moe_mid, Hq=32, Hkv=4,
+                          **moe_attn),
+        "ds_decode": dict(B=4, T=1, lens=moe_mid, Hq=16, Hkv=16,
+                          **moe_attn)})
     small = [dict(B=3, T=7, Hq=4, Hkv=1, D=64, ps=4, n=6, lens=[13, 0, 9],
                   window=5, softcap=50.0),
              dict(B=2, T=3, Hq=8, Hkv=2, D=128, ps=16, n=3, lens=[20, 33],
@@ -1275,7 +1323,7 @@ def check_paged_attn(g, dev) -> dict:
                                   call().float())
                 lib_ms = time_ms(lib)
             host = dev_us = None
-            if name.startswith(("g2_", "l32_", "olmo_")):
+            if name.startswith(("g2_", "l32_", "olmo_", "q3_", "ds_")):
                 host = host_us(call)
                 dev_us = launch_device_us(call, "paged_attn", n=20)
             # bf16 inputs: the tensor cores' bf16 rate; fp32: the CUDA cores'
@@ -1949,7 +1997,8 @@ def first_parting(a: dict, b: dict) -> dict:
     return out
 
 
-def decode_logits_check(cfg, dev, params, dtype, reqs, cpu_control=False) -> dict:
+def decode_logits_check(cfg, dev, params, dtype, reqs, cpu_control=False,
+                        pin_routes=False) -> dict:
     """Admit the first LM_SLOTS requests of ``reqs`` by whole-prompt
     prefill, then run one decode_step_paged through the kernels and one
     through the plain versions on copies of the same state. Returns the
@@ -1958,7 +2007,11 @@ def decode_logits_check(cfg, dev, params, dtype, reqs, cpu_control=False) -> dic
     logits, over the real vocab (the padded columns read -1e30). With
     ``cpu_control``, the plain versions also run on the CPU
     from the same state: the difference two correct float32 runs show at
-    this width."""
+    this width. With ``pin_routes`` (a MoE model), the routing flips
+    between the two steps are counted, and the plain step runs once more
+    on the kernel step's routing (``Routes(replay=...)``): its logits'
+    difference from the kernel's (``pinned_rel_err``) is the kernel's
+    rounding alone, without an expert chosen otherwise at a near-tie."""
     import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import InferenceEngine
@@ -1981,13 +2034,25 @@ def decode_logits_check(cfg, dev, params, dtype, reqs, cpu_control=False) -> dic
                 state.positions.to(d), state.page_table.to(d), act,
                 dtype=dtype, ops=ops)
         return lg[:, :cfg.vocab_size].float().cpu()   # not the -1e30 padding
-    kern = step(state.params, state.cache, tfm.KERNELS, dev)
-    plain = step(state.params, state.cache, tfm.PLAIN, dev)
+    with Routes() as kernel_routes:
+        kern = step(state.params, state.cache, tfm.KERNELS, dev)
+    with Routes() as plain_routes:
+        plain = step(state.params, state.cache, tfm.PLAIN, dev)
     scale = float(plain.abs().max())
     top2 = plain.topk(2, dim=-1).values
     out = {"rel_err": max_err(kern, plain) / scale,
            "argmax_equal": (kern.argmax(-1) == plain.argmax(-1)).tolist(),
            "top2_gap": (top2[:, 0] - top2[:, 1]).tolist(), "scale": scale}
+    if pin_routes:
+        out["routing_flips"] = routing_flips(
+            kernel_routes.calls, plain_routes.calls,
+            cfg.num_layers - cfg.first_k_dense)
+        with Routes(replay=kernel_routes.calls):
+            pinned = step(state.params, state.cache, tfm.PLAIN, dev)
+        out["pinned_rel_err"] = max_err(kern, pinned) / float(
+            pinned.abs().max())
+        out["pinned_argmax_equal"] = (kern.argmax(-1)
+                                      == pinned.argmax(-1)).tolist()
     if cpu_control:
         cpu = step(tfm.cast_params(state.params, dtype, torch.device("cpu")),
                    state.cache, tfm.PLAIN, torch.device("cpu"))
@@ -2026,41 +2091,56 @@ def checked_ops():
                                                         tfm.PLAIN)))
 
 
-def well_conditioned(cfg, params):
+def _scaled(t, factor, in_place: bool):
+    return t.mul_(factor) if in_place else t * factor
+
+
+def well_conditioned(cfg, params, in_place: bool = False):
     """The params with wq, wk, wv scaled to std 1/sqrt(d_model) and wo to
     1/sqrt(Hq*D) in every attention layer: unit-variance projections. The
     reference's law (std 1/sqrt(shape[-2])) gives wq std 1/sqrt(Hq) and
     attention scores with a spread in the hundreds. Layers without
-    attention are left as they are."""
+    attention are left as they are. ``in_place`` scales the leaves of
+    ``params`` itself (a model that fills the card has no room for a
+    second copy) and returns it."""
     d, hq, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     out = dict(params, layers=[])
     for lp in params["layers"]:
         if "attn" in lp:
-            a = dict(lp["attn"], wq=lp["attn"]["wq"] * (hq / d) ** 0.5,
-                     wk=lp["attn"]["wk"] * (hkv / d) ** 0.5,
-                     wv=lp["attn"]["wv"] * (hkv / d) ** 0.5,
-                     wo=lp["attn"]["wo"] / hq ** 0.5)
+            factors = {"wq": (hq / d) ** 0.5, "wk": (hkv / d) ** 0.5,
+                       "wv": (hkv / d) ** 0.5, "wo": hq ** -0.5}
+            a = dict(lp["attn"], **{k: _scaled(lp["attn"][k], f, in_place)
+                                    for k, f in factors.items()})
             lp = dict(lp, attn=a)
         out["layers"].append(lp)
-    return out
+    return params if in_place else out
 
 
-def damped(cfg, params):
+def damped(cfg, params, in_place: bool = False):
     """The params rescaled as ``well_conditioned`` does, then with every
-    layer's output projection (``wo``, ``w_down``, ``w_out``) scaled by
-    DAMP, and so the scale of each sandwich norm after them (gemma2's
+    layer's output projection (``wo``, ``w_down``, ``w_out``; a MoE
+    layer's experts and shared experts alike) scaled by DAMP, and so the
+    scale of each sandwich norm after them (gemma2's
     ``post_norm1/post_norm2``, which would otherwise normalise the damping
     away): the residual stream then carries the token's embedding almost
-    alone, and with tied embeddings the greedy model repeats its last
-    token. The n-gram drafter's drafts are then accepted, so a verify step
-    keeps some and rolls the rest back. The speculative mode runs on
-    these."""
+    alone. With tied embeddings the greedy model then repeats its last
+    token; an untied model (qwen3-moe, deepseek-moe) gets its embedding
+    table, transposed, as its unembedding, so that it repeats too. The
+    n-gram drafter's drafts are then accepted, so a verify step keeps
+    some and rolls the rest back. The speculative mode runs on these.
+    ``in_place`` scales and copies into ``params`` itself and returns it
+    (qwen3-moe's expert ``w_down`` alone are 19.3 GB in bf16)."""
     def walk(t, damp=False):
-        return {k: v * DAMP if damp or k in DAMPED else
+        return {k: _scaled(v, DAMP, in_place) if damp or k in DAMPED else
                 walk(v, k in DAMPED_NORMS) if isinstance(v, dict) else v
                 for k, v in t.items()}
-    well = well_conditioned(cfg, params)
-    return dict(well, layers=[walk(lp) for lp in well["layers"]])
+    well = well_conditioned(cfg, params, in_place)
+    out = dict(well, layers=[walk(lp) for lp in well["layers"]])
+    if "unembed" in params["embed"]:
+        table = params["embed"]["embedding"].t()
+        out["embed"] = dict(params["embed"], unembed=params["embed"][
+            "unembed"].copy_(table) if in_place else table.contiguous())
+    return params if in_place else out
 
 
 def check_spec(arch, name, r) -> None:
@@ -2321,16 +2401,13 @@ def local_launches(cfg, name: str, reqs: list) -> int:
 
 def init_params(cfg, dev, dtype=None):
     """The port's init of ``cfg`` on the card from LM_SEED, in float32 or
-    cast (``cast_params``) to ``dtype``, with the float32 tree freed."""
+    in ``dtype`` as ``cast_params`` casts it, each leaf cast as it is drawn
+    (the same bits as casting a float32 tree, which for qwen3-moe-30b-a3b
+    would take 122 GB)."""
     import torch
     from repro_torch.models import transformer as tfm
-    p32 = tfm.init(cfg, torch.Generator(device=dev).manual_seed(LM_SEED))
-    if dtype is None:
-        return p32
-    out = tfm.cast_params(p32, dtype, dev)
-    del p32
-    torch.cuda.empty_cache()
-    return out
+    return tfm.init(cfg, torch.Generator(device=dev).manual_seed(LM_SEED),
+                    dtype=dtype or torch.float32)
 
 
 def served_main_path(arch: str, dev) -> dict:
@@ -2612,7 +2689,7 @@ def compare_streams(arch, what, got, want, exact: bool) -> dict:
 
 
 def policy_runs(cfg, dev, params, spec_params, dtype, case: dict,
-                checked: bool) -> dict:
+                checked: bool, host_bytes: int) -> dict:
     """Serve one model's policy runs for ``case`` (a POLICY_CASES entry):
     greedy cold, off device-tier hits on an ample pool, off host-tier hits
     on the tight pool (hooks timed), defer-only and preempt on the
@@ -2624,7 +2701,8 @@ def policy_runs(cfg, dev, params, spec_params, dtype, case: dict,
     ``params``. Each run with its own launch counts; where ``checked``
     (fp32), the host-hit and preempt runs hold every launch against the
     plain version (``checked_ops``: the run then takes the plain
-    results), its calls and largest error under ``checked``."""
+    results), its calls and largest error under ``checked``. The host
+    tier holds ``host_bytes``."""
     v = cfg.vocab_size
     fams, per, gen = case["families"], case["per_family"], case["gen"]
     queues = {
@@ -2651,7 +2729,7 @@ def policy_runs(cfg, dev, params, spec_params, dtype, case: dict,
     plan += [
         ("host hits", "family", dict(
             chunk, prefix_cache=True, num_pages=case["tight"] * fam_pages,
-            slots=case["tight"], host_cache_bytes=POL_HOST_BYTES,
+            slots=case["tight"], host_cache_bytes=host_bytes,
             time_hooks=True, checked=checked)),
         ("defer-only", "preempt", pre),
         ("preempt", "preempt", dict(pre, preempt=True, time_hooks=True,
@@ -2804,11 +2882,11 @@ POLICY_LAUNCHES = {
 
 
 def policy_main_path(dev) -> dict:
-    """Phase 10: the serving policies at full width (16-token pages, 4
-    slots, 128-token chunks; weights from the port's init, seed 0), by
-    POLICY_CASES. qwen2-1.5b in bf16 on 4 shared-prefix families x 4
-    requests (a 1,024-token prefix, 64-192-token tails, 32 new tokens):
-    cold, off device-tier prefix hits, off host-tier hits, preemption
+    """Phase 10: the serving policies at full width and half depth
+    (``POL_DEPTH``; 16-token pages, 4 slots, 128-token chunks; weights
+    from the port's init, seed 0), by POLICY_CASES. qwen2-1.5b in bf16
+    on 4 shared-prefix families x 4 requests (a 1,024-token prefix,
+    64-192-token tails, 32 new tokens): cold, off device-tier prefix hits, off host-tier hits, preemption
     against defer-only on phase 5's 8 x 512 queue, then on the cut family
     queue (2 x 2, 16 new tokens) sampled whole, chunked, with spec_k=3,
     preempted and off prefix hits, and spec_k=3 with the model drafting
@@ -2824,7 +2902,9 @@ def policy_main_path(dev) -> dict:
     from repro_torch.configs import get_config
     out = {"launches": {}}
     for (arch, tag), case in POLICY_CASES.items():
-        cfg = get_config(arch)
+        full = get_config(arch)
+        cfg = full.replace(num_layers=POL_DEPTH.get(arch, full.num_layers))
+        host_bytes = POL_HOST_BYTES * page_bytes(cfg) // page_bytes(full)
         first = arch not in out
         dtype = torch.bfloat16 if tag == "bf16" else torch.float32
         params = init_params(cfg, dev, dtype if tag == "bf16" else None)
@@ -2835,12 +2915,12 @@ def policy_main_path(dev) -> dict:
             serve_once(cfg, dev, params, dtype, dict(
                 prefill_chunk=LM_CHUNK, prefix_cache=True, preempt=True,
                 num_pages=request_pages(warm),
-                host_cache_bytes=POL_HOST_BYTES), warm)
+                host_cache_bytes=host_bytes), warm)
         stamp(f"{arch} {tag} params ready")
         spec_params = damped(cfg, params) if tag == "bf16" else params
         exact = tag == "fp32"
         runs = policy_runs(cfg, dev, params, spec_params, dtype, case,
-                           checked=exact)
+                           checked=exact, host_bytes=host_bytes)
         need, never = POLICY_LAUNCHES[arch]
         for name, r in runs.items():
             check_launches(arch, f"{tag} {name}", r, need, never)
@@ -2856,14 +2936,287 @@ def policy_main_path(dev) -> dict:
             out["launches"].update({f"{arch} {n}": r["launches"]
                                     for n, r in runs.items()
                                     if "checked" not in r})
-            print(f"  {arch} page blob: {page_bytes(cfg)} bytes a page "
-                  "in bf16")
+            print(f"  {arch} ({cfg.num_layers} of {full.num_layers} "
+                  f"layers) page blob: {page_bytes(cfg)} bytes a page in "
+                  f"bf16, host tier {host_bytes} bytes")
         del params, spec_params
         torch.cuda.empty_cache()
         stamp(f"{arch} {tag} policy runs done")
     print("  " + json.dumps({k: v for k, v in out.items()
                              if k != "launches"}))
     return {"launches": out["launches"], "profile": None}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: mixture-of-experts serving at full width
+# ---------------------------------------------------------------------------
+# every MoE mode: paged_attn, and no other kernel (both models attend
+# globally; the expert products are PyTorch's bmm, as the reference's einsum)
+MOE_LAUNCHES = ({"paged_attn"}, {"conv1d", "ssd_chunk", "local_attn"} | _DOMST)
+
+
+class Routes:
+    """Inside ``with``: every routing of ``models.moe.route`` (its top-k
+    experts, (B, S, K), left on the card), call by call. With ``replay``
+    (an earlier run's ``calls``), call i takes that run's experts of call
+    i instead of its own top-k, weighted by its own probabilities there,
+    renormalised as ``route`` does: the run follows the earlier routing."""
+
+    def __init__(self, replay: list | None = None):
+        self.replay = replay
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.calls, self._real = [], moe.route
+
+        def route(router_w, x, m):
+            probs, idx, w = self._real(router_w, x, m)
+            if self.replay is not None:
+                idx = self.replay[len(self.calls)]
+                w = probs.gather(-1, idx)
+                w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+            self.calls.append(idx)
+            return probs, idx, w
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._real
+
+
+def routing_flips(a: list, b: list, layers: int) -> dict:
+    """Tokens whose set of experts differs between two runs' routings, call
+    by call, over the calls the two runs share in shape (one schedule makes
+    the same calls in the same order), and where the first fell (model
+    call, MoE layer)."""
+    flips, first, shared = 0, None, 0
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.shape != y.shape:
+            break
+        shared += 1
+        bad = int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+        if bad and first is None:
+            first = {"model_call": i // layers, "layer": i % layers}
+        flips += bad
+    return {"calls": shared, "flipped_tokens": flips, "first": first}
+
+
+def expert_bytes(params) -> int:
+    """Bytes of the routed experts' weights: what one decode step reads,
+    since its dispatch runs every expert at capacity 1."""
+    return sum(lp["ffn"][k].numel() * lp["ffn"][k].element_size()
+               for lp in params["layers"] if "router" in lp.get("ffn", {})
+               for k in ("w_gate", "w_up", "w_down"))
+
+
+def moe_main_path(dev) -> dict:
+    """Phase 11. qwen3-moe-30b-a3b at full width and depth, random weights
+    from the port's init (seed 0) drawn leaf by leaf in bf16, served on one
+    wave in three modes, each with the launch counts set to 0 just before
+    and read just after (paged_attn > 0, every other kernel 0): whole
+    prefill (its routings recorded), a profiled repeat of it with 8 new
+    tokens, the same run through the plain versions (the bf16 streams,
+    kernel against plain, their first parting and the routing flips
+    between the two), 128-token chunks, and last ``spec_k=3`` on the
+    weights damped in place. Then the same model at 4 of its 48 layers in
+    float32: in each mode every launch held against the plain version
+    (``checked_ops``, which serves the plain results) and the kernels'
+    greedy streams equal to that run's, on the rescaled weights (spec on
+    the damped ones). Then deepseek-moe-16b at full width and depth by
+    whole prefill of the wave, and one bf16 decode step's logits, kernel
+    against plain, with the routing flips between the two steps, and
+    against plain on the kernel step's routing: printed on the main
+    weights, the latter held within 2^-5 on the rescaled ones (a flipped
+    expert at a near-tie moves a token's FFN output by a whole expert's
+    share, which no rounding tolerance can hold)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import InferenceEngine, Scheduler
+    bf16 = torch.bfloat16
+    modes = {"whole": {}, "chunked": {"prefill_chunk": LM_CHUNK},
+             "spec": {"spec_k": LM_SPEC_K}}
+    out = {}
+
+    def free():
+        # engines and schedulers hold their params in reference cycles:
+        # collect them before the card's memory is reused
+        gc.collect()
+        torch.cuda.empty_cache()
+    free()
+    print(f"  allocated at the start: {torch.cuda.memory_allocated() / 1e9:.2f}"
+          " GB")
+
+    def load(arch, depth=None, dtype=bf16):
+        cfg = get_config(arch)
+        if depth:
+            cfg = cfg.replace(num_layers=depth)
+        t0 = time.perf_counter()
+        params = init_params(cfg, dev, dtype)
+        torch.cuda.synchronize()
+        nparams = sum(t.numel() for t in _leaves(params))
+        gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+        print(f"  {arch} params: {nparams / 1e9:.3f} B ({gb:.2f} GB in "
+              f"{str(dtype).split('.')[-1]}), {cfg.num_layers} layers, d "
+              f"{cfg.d_model}, {cfg.num_heads} heads on {cfg.num_kv_heads}, "
+              f"{cfg.moe.num_experts} experts top {cfg.moe.top_k}, vocab "
+              f"{cfg.vocab_size}, init {time.perf_counter() - t0:.1f} s")
+        return cfg, params
+
+    def wave(cfg, gen=MOE_GEN):
+        return requests_of(cfg.vocab_size, MOE_LENS, gen)
+
+    def served(cfg, params, name, **kw):
+        r = serve_once(cfg, dev, params, bf16, modes[name], wave(cfg), **kw)
+        check_tokens(cfg, name, r, wave(cfg))
+        check_spec(cfg.name, name, r)
+        check_launches(cfg.name, name, r, *MOE_LAUNCHES)
+        print_run(cfg.name, name, r)
+        return r
+
+    # qwen3-moe-30b-a3b, bf16, 48 layers
+    torch.cuda.reset_peak_memory_stats()
+    cfg, pbf = load("qwen3-moe-30b-a3b")
+    layers = cfg.num_layers - cfg.first_k_dense
+    serve_once(cfg, dev, pbf, bf16, {"prefill_chunk": LM_CHUNK},
+               requests_of(cfg.vocab_size, MOE_LENS[:2], 4))    # warm-up
+    runs = {}
+    with Routes() as kernel_routes:
+        runs["whole"] = served(cfg, pbf, "whole")
+    eng = InferenceEngine(cfg, slots=LM_SLOTS, max_len=max(MOE_LENS)
+                          + MOE_PROFILE_GEN, page_size=16, dtype=bf16,
+                          device=dev)
+    sched = Scheduler(eng, eng.init_state(pbf))
+    prof = device_breakdown(lambda: sched.run(wave(cfg, MOE_PROFILE_GEN)),
+                            top=25, host=False)
+    del eng, sched
+    runs["whole"]["profile"] = prof
+    busy = prof["device_busy_s"]
+    print(f"    profiled repeat ({len(MOE_LENS)} x {MOE_PROFILE_GEN} new "
+          f"tokens): wall {prof['wall_s']:.3f} s, device busy "
+          f"{'not measured' if busy is None else f'{busy:.3f} s'}")
+    for row in prof["by_kernel"][:12]:
+        print(f"      {row['device_ms']:9.2f} ms {row['calls']:7d}x "
+              f"{row['kernel']}")
+    with Routes() as plain_routes:
+        plain = serve_once(cfg, dev, pbf, bf16, modes["whole"], wave(cfg),
+                           ops=tfm.PLAIN)
+    check(not any(plain["launches"].values()), "the plain run launched")
+    flips = routing_flips(kernel_routes.calls, plain_routes.calls, layers)
+    del kernel_routes, plain_routes
+    streams = {"equal_share": same_tokens(runs["whole"]["gen"], plain["gen"]),
+               "first_parting": first_parting(runs["whole"]["gen"],
+                                              plain["gen"]),
+               "routing_flips": flips}
+    print(f"  {cfg.name} bf16 whole-prefill streams, kernel vs plain: "
+          f"{streams['equal_share']:.3f} equal, first parting by request "
+          f"{streams['first_parting']}; routing flips between the two runs: "
+          f"{flips['flipped_tokens']} tokens over {flips['calls']} MoE calls, "
+          f"the first at {flips['first']}")
+    stamp(f"{cfg.name} whole prefill, profile and plain run done")
+    runs["chunked"] = served(cfg, pbf, "chunked")
+    damped(cfg, pbf, in_place=True)             # the spec mode runs last
+    runs["spec"] = served(cfg, pbf, "spec")
+    peak = torch.cuda.max_memory_allocated()
+    step = {n: r["stats"]["decode_s"] / max(r["stats"]["decode_steps"], 1)
+            for n, r in runs.items()}
+    floor_ms = expert_bytes(pbf) / HBM_BYTES_PER_S * 1e3
+    print(f"  {cfg.name}: peak memory {peak / 1e9:.2f} GB "
+          f"(max_memory_allocated); decode step (host clock, whole / "
+          f"chunked / spec) {' / '.join(f'{v * 1e3:.2f}' for v in step.values())}"
+          f" ms against a {floor_ms:.2f} ms device floor (the routed "
+          "experts' weights once over HBM)")
+    del pbf
+    free()
+    stamp(f"{cfg.name} bf16 served runs done")
+
+    # the same model at 4 of 48 layers in float32: each launch against the
+    # plain version, and the kernels' streams against the checked run's
+    # (which serves the plain results); rescaled weights, spec damped
+    f32 = {}
+    for name in modes:
+        cfg4, p32 = load("qwen3-moe-30b-a3b", MOE_F32_DEPTH, torch.float32)
+        if name == "spec":
+            damped(cfg4, p32, in_place=True)
+        else:
+            well_conditioned(cfg4, p32, in_place=True)
+        ops = checked_ops()
+        with Routes() as plain_routes:
+            chk = serve_once(cfg4, dev, p32, torch.float32, modes[name],
+                             wave(cfg4), ops=ops)
+        with Routes() as kernel_routes:
+            ker = serve_once(cfg4, dev, p32, torch.float32, modes[name],
+                             wave(cfg4))
+        for r in (chk, ker):
+            check_spec(cfg4.name, name, r)
+        check_launches(cfg4.name, f"{name} fp32", ker, *MOE_LAUNCHES)
+        rows = {k: {"launches": c.calls, "max_rel_err": c.max_rel}
+                for k, c in zip(tfm.KernelOps._fields, ops)}
+        c = rows["paged_attn"]
+        check(all(v["launches"] == 0 for k, v in rows.items()
+                  if k != "paged_attn"), f"fp32 {name}: {rows}")
+        f32[name] = {"checked": c, "streams_equal": ker["gen"] == chk["gen"],
+                     "first_parting": first_parting(ker["gen"], chk["gen"]),
+                     "routing_flips": routing_flips(
+                         kernel_routes.calls, plain_routes.calls,
+                         MOE_F32_DEPTH),
+                     "kernel_tok_per_s": ker["tok_per_s"],
+                     "plain_tok_per_s": chk["tok_per_s"]}
+        print(f"  {cfg.name} ({MOE_F32_DEPTH} layers) {name} fp32: "
+              f"{c['launches']} paged_attn launches held against the plain "
+              f"version, max error {c['max_rel_err']:.3e} of the output's "
+              f"largest |value| (tolerance {REL_F32}); greedy streams equal: "
+              f"{f32[name]['streams_equal']} (first parting "
+              f"{f32[name]['first_parting']}); routing flips "
+              f"{f32[name]['routing_flips']['flipped_tokens']}")
+        check(c["launches"] > 0 and c["max_rel_err"] <= REL_F32,
+              f"fp32 {name}: kernel differs from plain by {c['max_rel_err']}")
+        check(f32[name]["streams_equal"],
+              f"fp32 {name}: kernel and plain streams differ")
+        del p32
+        free()
+    stamp(f"{cfg.name} fp32 checks done")
+    print("  " + json.dumps({cfg.name: run_summary(runs), "fp32": f32,
+                             "bf16_streams": streams, "peak_gb": peak / 1e9,
+                             "decode_step_ms": {k: v * 1e3
+                                                for k, v in step.items()},
+                             "decode_floor_ms": floor_ms}))
+    out[cfg.name] = {"launches": {n: r["launches"] for n, r in runs.items()},
+                     "profile": prof}
+
+    # deepseek-moe-16b, bf16, 28 layers (the first dense), whole prefill
+    cfg, pbf = load("deepseek-moe-16b")
+    serve_once(cfg, dev, pbf, bf16, {}, requests_of(cfg.vocab_size,
+                                                    MOE_LENS[:2], 4))
+    r = served(cfg, pbf, "whole")
+    logits = {}
+    for tag in ("main weights", "rescaled weights"):
+        if tag == "rescaled weights":
+            well_conditioned(cfg, pbf, in_place=True)
+        bf = decode_logits_check(cfg, dev, pbf, bf16, wave(cfg),
+                                 pin_routes=True)
+        logits[tag] = bf
+        print(f"  {cfg.name} bf16 decode_step_paged logits, {tag}: kernel vs "
+              f"plain {bf['rel_err']:.3e} of the largest |logit|, argmax "
+              f"equal {bf['argmax_equal']}, with "
+              f"{bf['routing_flips']['flipped_tokens']} routing flips between "
+              f"the two steps (first {bf['routing_flips']['first']}); plain "
+              f"on the kernel step's routing {bf['pinned_rel_err']:.3e}, "
+              f"argmax equal {bf['pinned_argmax_equal']} (tolerance "
+              f"{REL_LOGITS_BF16} on the rescaled weights)")
+    rel = logits["rescaled weights"]["pinned_rel_err"]
+    check(rel <= REL_LOGITS_BF16, f"{cfg.name} bf16 decode logits differ by "
+          f"{rel} on one routing")
+    del pbf
+    free()
+    print("  " + json.dumps({cfg.name: run_summary({"whole": r}),
+                             "bf16_logits": logits}))
+    out[cfg.name] = {"launches": {"whole": r["launches"]}, "profile": None}
+    return out
 
 
 def _leaves(tree):
@@ -2983,6 +3336,8 @@ def main() -> int:
         by_model[arch] = dense_main_path(arch, dev)
     print(f"[10] main path: serving policies, qwen2-1.5b and recurrentgemma-2b (at {time.perf_counter() - T_START:.0f} s)")
     by_model["policies"] = policy_main_path(dev)
+    print(f"[11] main path: MoE serving, qwen3-moe-30b-a3b and deepseek-moe-16b (at {time.perf_counter() - T_START:.0f} s)")
+    by_model.update(moe_main_path(dev))
     for res in by_model.values():
         for counts in res["launches"].values():
             for name, c in counts.items():
@@ -3005,7 +3360,7 @@ def main() -> int:
             arch: device_ms_per_launch(res["profile"]).get(k["name"])
             for arch, res in by_model.items()
             if arch in k["launches_by_mode"] and res["profile"]}
-    print(f"[11] all phases passed in {time.perf_counter() - T_START:.1f} s")
+    print(f"[12] all phases passed in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

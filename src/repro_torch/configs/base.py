@@ -1,14 +1,12 @@
 """Configuration dataclasses for the port: a copy of what the Dom-ST, the
-dense-decoder, the Mamba-2 and the RecurrentGemma paths read of the
-reference's ``configs/base.py``.
+dense-decoder, the mixture-of-experts, the Mamba-2 and the RecurrentGemma
+paths read of the reference's ``configs/base.py``.
 
-``SSMConfig``, ``RGLRUConfig``, ``PixConConfig``, ``DomSTConfig``,
-``ModelConfig`` and ``TrainConfig`` are field-for-field copies, with the same defaults and the
-same helpers (``d_inner``, ``num_heads``, ``padded_vocab``,
-``resolved_head_dim``, ``layer_kinds``, ``supports_decode``). The MoE
-sub-config is not ported yet: its field is kept so a config reads alike,
-and the model raises ``NotImplementedError`` where it would need it.
-Configs are pure data and never touch a device.
+``MoEConfig``, ``SSMConfig``, ``RGLRUConfig``, ``PixConConfig``,
+``DomSTConfig``, ``ModelConfig`` and ``TrainConfig`` are field-for-field
+copies, with the same defaults and the same helpers (``d_inner``,
+``num_heads``, ``padded_vocab``, ``resolved_head_dim``, ``layer_kinds``,
+``supports_decode``). Configs are pure data and never touch a device.
 """
 from __future__ import annotations
 
@@ -23,6 +21,25 @@ RECURRENT = "recurrent"         # RG-LRU recurrent block (recurrentgemma)
 SSM = "ssm"                     # Mamba-2 SSD block
 
 LAYER_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, SSM)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN configuration (DeepSeekMoE / Qwen3-MoE style)."""
+
+    num_experts: int                  # routed experts
+    top_k: int                        # experts per token
+    d_ff_expert: int                  # hidden dim of each routed expert
+    num_shared: int = 0               # always-on shared experts
+    d_ff_shared: int = 0              # hidden dim of shared expert(s); 0 -> d_ff_expert * num_shared
+    aux_loss_coef: float = 0.01       # load-balance auxiliary loss
+    capacity_factor: float = 1.25     # expert capacity slack (tokens dropped beyond)
+    router_dtype: str = "float32"     # router math in fp32 for stability
+
+    def __post_init__(self) -> None:
+        if self.top_k > self.num_experts:
+            raise ValueError(
+                f"top_k={self.top_k} > num_experts={self.num_experts}")
 
 
 @dataclass(frozen=True)
@@ -91,8 +108,8 @@ class ModelConfig:
 
     ``family`` selects the top-level model builder:
       dense | moe | ssm | hybrid | encoder | vlm | audio | domst
-    The port runs the ``domst`` family, the dense decoders, ``ssm``
-    (Mamba-2) and the RG-LRU/local-attention ``hybrid``.
+    The port runs the ``domst`` family, the dense decoders, ``moe``,
+    ``ssm`` (Mamba-2) and the RG-LRU/local-attention ``hybrid``.
     """
 
     name: str
@@ -121,8 +138,8 @@ class ModelConfig:
     embed_scale: bool = False         # gemma-style sqrt(d_model) embed scaling
     causal: bool = True               # False for encoder-only (hubert)
 
-    # sub-configs (MoE is not ported: kept opaque)
-    moe: Optional[Any] = None
+    # sub-configs
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     pixcon: Optional[PixConConfig] = None

@@ -1,10 +1,8 @@
-"""Reduced smoke-test variants: 2 layers, d_model <= 256, vocab <= 512;
-for Dom-ST 16 pixels, 8-day windows and narrow layers.
+"""Reduced smoke-test variants: 2 layers, d_model <= 256, vocab <= 512,
+<= 4 experts; for Dom-ST 16 pixels, 8-day windows and narrow layers.
 
-A copy of the Dom-ST, LM, SSM and RG-LRU branches of the reference's
-``configs/smoke.py::smoke_variant``, for the families the port runs. Its
-MoE branch waits for that block to be ported and raises
-``NotImplementedError`` meanwhile.
+A copy of the Dom-ST, LM, MoE, SSM and RG-LRU branches of the reference's
+``configs/smoke.py::smoke_variant``, for the families the port runs.
 """
 from __future__ import annotations
 
@@ -26,10 +24,6 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
                 pixcon=PixConConfig(hidden=8, num_partitions=2),
             ),
         )
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the moe block is not ported yet (ROADMAP Queue A)")
-
     d_model = min(cfg.d_model, 256)
     # keep head structure: shrink head count but preserve GQA ratio
     if cfg.num_heads:
@@ -54,6 +48,15 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         num_patches=min(cfg.num_patches, 8) if cfg.num_patches else 0,
         frontend_dim=min(cfg.frontend_dim, 64) if cfg.frontend_dim else 0,
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe,
+            num_experts=4,
+            top_k=min(cfg.moe.top_k, 2),
+            d_ff_expert=64,
+            num_shared=min(cfg.moe.num_shared, 1),
+            d_ff_shared=64 if cfg.moe.num_shared else 0,
+        )
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(
             cfg.ssm, state_dim=16, head_dim=32, chunk_size=8)

@@ -23,8 +23,11 @@ leaves carry a leading layer-repetition axis, and the port keeps one
 nested dict per layer, so that axis is unstacked into the list
 ``layers`` (prefix layers, the repetitions pattern by pattern, then the
 suffix). Leaves keep the reference's shapes and names, in the attention
-(``attn``), RG-LRU (``rec``), SSM (``ssm``, with its nested
-``out_norm``) and FFN subtrees alike.
+(``attn``, with qwen3's ``q_norm``/``k_norm``), RG-LRU (``rec``), SSM
+(``ssm``, with its nested ``out_norm``) and FFN subtrees alike; a MoE
+FFN keeps its ``router``, its experts stacked on a leading expert axis
+(``w_gate``, ``w_up``, ``w_down``) and its ``shared`` MLP, and
+deepseek-moe's dense first layer comes from ``prefix``.
 """
 from __future__ import annotations
 

@@ -10,8 +10,11 @@ Two modes, as in the reference's ``repro/launch/serve.py``:
     against observed discharge;
   * a decoder — dense (``--arch qwen2-1.5b``, ``llama3.2-3b``,
     ``olmo-1b``, or ``gemma2-2b`` / ``gemma2-2b-localonly`` with their
-    local layers and softcaps), RG-LRU/local-attention hybrid (``--arch
-    recurrentgemma-2b``) or SSM (``--arch mamba2-130m``), ``--smoke`` for
+    local layers and softcaps), mixture-of-experts (``--arch
+    qwen3-moe-30b-a3b`` with QK norm, ``deepseek-moe-16b`` with shared
+    experts and a dense first layer), RG-LRU/local-attention hybrid
+    (``--arch recurrentgemma-2b``) or SSM (``--arch mamba2-130m``),
+    ``--smoke`` for
     the reduced variant — continuous batching over the paged
     :class:`InferenceEngine` through the :class:`Scheduler`: one
     whole-prompt prefill per request (or ``--prefill-chunk N`` tokens at a
@@ -50,6 +53,8 @@ raises.
       --smoke --device cpu --prefill-chunk 3 --spec-k 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen3-moe-30b-a3b --smoke --device cpu --spec-k 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --smoke --device cpu --shared-prefix 16 \\
       --prefix-cache --preempt --temperature 0.8 --top-p 0.9 --spec-k 3
@@ -205,8 +210,10 @@ def serve_lm(args) -> dict:
                              num_pages=args.num_pages or None,
                              prefill_chunk=args.prefill_chunk,
                              device=args.device)
+    # drawn leaf by leaf in the engine's dtype: qwen3-moe-30b-a3b's float32
+    # tree (122 GB) would not fit on one card
     params = tfm.init(cfg, torch.Generator(
-        device=engine.device).manual_seed(args.seed))
+        device=engine.device).manual_seed(args.seed), dtype=engine.dtype)
     if args.ckpt:
         params = engine.restore_params(args.ckpt, params)
     state = engine.init_state(params)

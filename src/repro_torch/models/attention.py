@@ -37,7 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.local_attn.ops import local_attention_fused
 from repro_torch.kernels.paged_attn.ops import paged_attention_fused
-from repro_torch.models.layers import NEG_INF, apply_rope
+from repro_torch.models.layers import NEG_INF, apply_norm, apply_rope
 
 
 # ---------------------------------------------------------------------------
@@ -46,7 +46,7 @@ from repro_torch.models.layers import NEG_INF, apply_rope
 def qkv_project(params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor):
     """x (B,S,d), positions (B,S) -> q (B,S,Hq,D), k/v (B,S,Hkv,D) with
-    rope applied."""
+    the biases, QK norm and rope applied."""
     B, S, d = x.shape
 
     def proj(w):
@@ -58,6 +58,10 @@ def qkv_project(params, cfg: ModelConfig, x: torch.Tensor,
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
+    if cfg.qk_norm:
+        # qwen3: RMSNorm over each head's D channels, before rope
+        q = apply_norm(params["q_norm"], "rmsnorm", q)
+        k = apply_norm(params["k_norm"], "rmsnorm", k)
     if cfg.rope:
         # rope over (B,S,H,D): positions broadcast over the head axis
         q = apply_rope(q, positions[:, :, None], cfg.rope_theta)

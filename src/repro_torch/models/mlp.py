@@ -7,6 +7,14 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 
 
+def mlp_shapes(d_model: int, d_ff: int):
+    """{leaf: (shape, init, scale)} of the gated MLP, the reference's
+    ``mlp_params`` (every leaf by the fan-in rule)."""
+    return {"w_gate": ((d_model, d_ff), "normal", None),
+            "w_up": ((d_model, d_ff), "normal", None),
+            "w_down": ((d_ff, d_model), "normal", None)}
+
+
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
         return F.silu(x)

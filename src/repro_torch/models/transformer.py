@@ -1,8 +1,8 @@
 """The decoder stack: parameters, whole-prompt prefill and the paged
 incremental paths (decode, speculative verify, chunked prefill).
 
-The port of the dense, recurrent (RG-LRU) and SSM (Mamba-2) parts of
-``repro/models/transformer.py``.
+The port of the dense, mixture-of-experts, recurrent (RG-LRU) and SSM
+(Mamba-2) parts of ``repro/models/transformer.py``.
 The reference scans a stacked ``params["blocks"]`` with a leading
 repetition axis; the port holds one parameter dict per layer in
 ``params["layers"]`` (prefix, then the pattern repetitions, then the
@@ -19,9 +19,11 @@ returns the state after every proposed token, stacked on a leading T
 axis, and ``serve.state.select_verified`` keeps each slot's snapshot at
 its last accepted token.
 
-MoE, QK norms, the audio/vision front ends and the contribution gate are
-not ported: the stack raises ``NotImplementedError`` where a config would
-need them.
+A MoE layer's FFN is ``models/moe.py``'s ``moe_block`` (deepseek-moe's
+first ``first_k_dense`` layers keep a dense FFN); QK norm is in
+``attention.qkv_project``. The audio/vision front ends and the
+contribution gate are not ported: the stack raises
+``NotImplementedError`` where a config would need them.
 
 Every kernel the stack runs is named by ``ops`` (``KERNELS``): paged
 attention, the causal conv1d, the SSD chunk and local attention, the
@@ -48,6 +50,7 @@ from repro_torch.kernels.ssd_chunk.ops import ssd_chunk_fused
 from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import PagedKVCache
@@ -108,14 +111,10 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[LayerKind, str]]:
     plan += [(k, _ffn_kind(cfg, k, in_prefix=False))
              for _ in range(n_rep) for k in pat]
     plan += [(k, _ffn_kind(cfg, k, in_prefix=False)) for k in suffix]
-    for kind, ffn in plan:
-        if ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: moe layers are not ported yet (ROADMAP Queue A)")
-    if cfg.frontend is not None or cfg.contribution_gate or cfg.qk_norm:
+    if cfg.frontend is not None or cfg.contribution_gate:
         raise NotImplementedError(
-            f"{cfg.name}: front ends, the contribution gate and QK norms "
-            "are not ported yet (ROADMAP Queue A)")
+            f"{cfg.name}: front ends and the contribution gate are not "
+            "ported yet (ROADMAP Queue A)")
     return plan
 
 
@@ -139,6 +138,9 @@ def _layer_shapes(cfg: ModelConfig, kind: LayerKind,
             attn.update(bq=((hq, dh), "zeros", None),
                         bk=((hkv, dh), "zeros", None),
                         bv=((hkv, dh), "zeros", None))
+        if cfg.qk_norm:
+            attn.update(q_norm=_norm_shapes("rmsnorm", dh),
+                        k_norm=_norm_shapes("rmsnorm", dh))
         out["attn"] = attn
     elif kind == RECURRENT:
         out["rec"] = rglru_mod.rglru_shapes(cfg)
@@ -148,11 +150,10 @@ def _layer_shapes(cfg: ModelConfig, kind: LayerKind,
         raise ValueError(kind)
     if cfg.post_norms:
         out["post_norm1"] = norm
-    if ffn == "dense":
+    if ffn != "none":
         out["norm2"] = norm
-        out["ffn"] = {"w_gate": ((d, cfg.d_ff), "normal", None),
-                      "w_up": ((d, cfg.d_ff), "normal", None),
-                      "w_down": ((cfg.d_ff, d), "normal", None)}
+        out["ffn"] = (mlp_mod.mlp_shapes(d, cfg.d_ff) if ffn == "dense"
+                      else moe_mod.moe_shapes(cfg))
         if cfg.post_norms:
             out["post_norm2"] = norm
     return out
@@ -170,19 +171,22 @@ def _norm_shapes(kind: str, dim: int) -> Dict[str, tuple]:
 
 
 def model_params(cfg: ModelConfig, make: Callable) -> Params:
-    """The parameter tree, each leaf made by ``make(shape, init, scale)``
-    in the reference's order."""
-    def build(tree):
+    """The parameter tree, each leaf made by ``make(shape, init, scale,
+    key)`` in the reference's order; ``key`` is the leaf's '/'-joined
+    path (``/layers/ffn/router``)."""
+    def build(tree, key):
         if isinstance(tree, dict):
-            return {k: build(v) for k, v in tree.items()}
-        return make(*tree)
+            return {k: build(v, f"{key}/{k}") for k, v in tree.items()}
+        return make(*tree, key)
     p: Params = {"embed": {"embedding": make(
-        (cfg.padded_vocab(), cfg.d_model), "embed", 0.02)}}
+        (cfg.padded_vocab(), cfg.d_model), "embed", 0.02,
+        "/embed/embedding")}}
     if not cfg.tie_embeddings:
         p["embed"]["unembed"] = make((cfg.d_model, cfg.padded_vocab()),
-                                     "embed", 0.02)
-    p["final_norm"] = build(_norm_shapes(cfg.norm, cfg.d_model))
-    p["layers"] = [build(_layer_shapes(cfg, kind, ffn))
+                                     "embed", 0.02, "/embed/unembed")
+    p["final_norm"] = build(_norm_shapes(cfg.norm, cfg.d_model),
+                            "/final_norm")
+    p["layers"] = [build(_layer_shapes(cfg, kind, ffn), "/layers")
                    for kind, ffn in layer_plan(cfg)]
     return p
 
@@ -191,44 +195,56 @@ def init(cfg: ModelConfig, generator: torch.Generator,
          dtype: torch.dtype = torch.float32) -> Params:
     """Random params on the generator's device, by the reference's
     ``ParamFactory`` law: normal with std 1/sqrt(shape[-2]) (its fan-in
-    rule: ``wq`` (d, Hq, D) gets 1/sqrt(Hq)), the embedding normal with
-    std 0.02, ``A_log`` and ``lam`` uniform on [-1, 1], biases 0 and norm
-    scales (and the SSM skip ``D``) 1. The bits differ from JAX's."""
+    rule: ``wq`` (d, Hq, D) gets 1/sqrt(Hq)), the embedding and the MoE
+    router normal with std 0.02, ``A_log`` and ``lam`` uniform on [-1, 1],
+    biases 0 and norm scales (and the SSM skip ``D``) 1. The bits differ
+    from JAX's. Each leaf is drawn in float32 and cast at once as
+    ``cast_params`` casts it to ``dtype``, so the tree equals
+    ``cast_params(init(cfg, generator), dtype)`` without a float32 copy
+    of the whole model ever being held."""
     device = generator.device
 
-    def make(shape, kind, scale):
+    def make(shape, kind, scale, key):
+        out = torch.float32 if _keeps_float32(key) else dtype
         if kind == "zeros":
-            return torch.zeros(shape, dtype=dtype, device=device)
+            return torch.zeros(shape, dtype=out, device=device)
         if kind == "ones":
-            return torch.ones(shape, dtype=dtype, device=device)
+            return torch.ones(shape, dtype=out, device=device)
         if kind == "uniform":
             lim = scale or 1.0 / max(shape[-1], 1) ** 0.5
             t = torch.rand(shape, generator=generator, dtype=torch.float32,
                            device=device)
-            return ((2 * t - 1) * lim).to(dtype)
+            return ((2 * t - 1) * lim).to(out)
         if scale is None:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             scale = 1.0 / max(fan_in, 1) ** 0.5
         t = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (t * scale).to(dtype)
+        return (t * scale).to(out)
     return model_params(cfg, make)
 
 
 # read in float32 by the reference whatever the activation dtype (the SSM
-# decode step reads D in float32, its prefill in the activation dtype)
-_FLOAT32_LEAVES = ("A_log", "D", "lam")
+# decode step reads D in float32, its prefill in the activation dtype; the
+# MoE router runs in float32)
+_FLOAT32_LEAVES = ("A_log", "D", "lam", "router")
+
+
+def _keeps_float32(key: str) -> bool:
+    """Whether the leaf at path ``key`` stays float32 in any dtype: norm
+    scales and ``_FLOAT32_LEAVES``."""
+    return "norm" in key or key.rsplit("/", 1)[-1] in _FLOAT32_LEAVES
 
 
 def cast_params(params: Params, dtype: torch.dtype,
                 device: Optional[torch.device] = None) -> Params:
     """The params as the serving state holds them: projection, bias, conv,
-    MLP and embedding weights in the activation dtype, cast once here
-    where the reference casts them at every use; norm scales and the
+    MLP, expert and embedding weights in the activation dtype, cast once
+    here where the reference casts them at every use; norm scales and the
     leaves the reference reads in float32 (the SSM's ``A_log`` and ``D``,
-    the RG-LRU's ``lam``) kept in float32."""
+    the RG-LRU's ``lam``, the MoE router) kept in float32."""
     def one(key, t):
-        keep32 = "norm" in key or key.rsplit("/", 1)[-1] in _FLOAT32_LEAVES
+        keep32 = _keeps_float32(key)
         return t.to(device=device, dtype=torch.float32 if keep32 else dtype)
 
     def walk(tree, key=""):
@@ -257,7 +273,10 @@ def _apply_ffn(lp, cfg: ModelConfig, x: torch.Tensor, ffn: str):
     if ffn == "none":
         return x
     h = apply_norm(lp["norm2"], cfg.norm, x)
-    out = mlp_mod.mlp_block(lp["ffn"], cfg, h)
+    if ffn == "dense":
+        out = mlp_mod.mlp_block(lp["ffn"], cfg, h)
+    else:
+        out, _ = moe_mod.moe_block(lp["ffn"], cfg, h)
     if cfg.post_norms:
         out = apply_norm(lp["post_norm2"], cfg.norm, out)
     return x + out

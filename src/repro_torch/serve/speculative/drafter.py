@@ -135,7 +135,7 @@ class ModelDrafter:
                                       device=device)
         if params is None:
             params = tfm.init(cfg, torch.Generator(
-                device=self.engine.device).manual_seed(seed))
+                device=self.engine.device).manual_seed(seed), dtype=dtype)
         self.state = self.engine.init_state(params)
         self._pos: Dict[int, int] = {}  # slot -> committed tokens consumed
         self._ctx: Dict[int, np.ndarray] = {}  # slot -> committed prefix

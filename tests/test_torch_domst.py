@@ -44,8 +44,9 @@ def _np_tree(tree):
 
 def test_configs_match_reference():
     assert list_configs() == sorted(VARIANTS + (
-        "gemma2-2b", "gemma2-2b-localonly", "llama3.2-3b", "mamba2-130m",
-        "olmo-1b", "qwen2-1.5b", "recurrentgemma-2b"))
+        "deepseek-moe-16b", "gemma2-2b", "gemma2-2b-localonly", "llama3.2-3b",
+        "mamba2-130m", "olmo-1b", "qwen2-1.5b", "qwen3-moe-30b-a3b",
+        "recurrentgemma-2b"))
     for name in VARIANTS:
         j, t = j_get_config(name), get_config(name)
         assert (t.name, t.family, t.causal) == (j.name, j.family, j.causal)

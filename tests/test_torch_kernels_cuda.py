@@ -618,6 +618,35 @@ def test_paged_attn_dense_decoder_shapes(dev, dtype, atol, T, Hq, Hkv, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("B,T,Hq,Hkv,lens", [
+    # qwen3-moe-30b-a3b (G=8, D=128): decode and verify of the main
+    # path's wave (8 and 32 query rows a KV head: two 16-row tiles), and
+    # a 128-token prefill chunk at offset 384
+    (4, 1, 32, 4, [528, 526, 524, 522]),
+    (4, 4, 32, 4, [528, 526, 524, 522]),
+    (1, 128, 32, 4, [512]),
+    # deepseek-moe-16b (G=1 on 16 KV heads): decode and verify
+    (4, 1, 16, 16, [530, 528, 526, 524]),
+    (4, 4, 16, 16, [530, 528, 526, 524]),
+])
+def test_paged_attn_moe_decoder_shapes(dev, dtype, atol, B, T, Hq, Hkv,
+                                       lens):
+    from repro_torch.kernels.paged_attn import ops
+    from repro_torch.kernels.paged_attn.ref import paged_attention_ref
+    g = torch.Generator().manual_seed(B * 1000 + T * 100 + Hq)
+    n = -(-(max(lens) + 16) // 16)
+    a = _paged_case(g, dev, getattr(torch, dtype), B, T, Hq, Hkv, 128, 16,
+                    n, lens)
+    before = ops.paged_attention_fused.launches
+    out = ops.paged_attention_fused(**a, window=0, softcap=0.0)
+    torch.cuda.synchronize()
+    assert ops.paged_attention_fused.launches == before + 1
+    ref = paged_attention_ref(**a, window=0, softcap=0.0)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("S", [1, 15, 16, 17, 63, 64, 65, 129])

@@ -171,7 +171,10 @@ def test_split_ref_matches_plain(pages_per_split, window, softcap, dtype):
 # (B, T, Hq, Hkv, n): the decode and verify shapes of the served models,
 # their page rows as long as chip_smoke.py's queues make them
 SERVED = {"qwen2_decode": (4, 1, 12, 2, 36), "qwen2_verify": (4, 4, 12, 2, 36),
-          "rg_decode": (4, 1, 10, 1, 162), "rg_verify": (4, 4, 10, 1, 162)}
+          "rg_decode": (4, 1, 10, 1, 162), "rg_verify": (4, 4, 10, 1, 162),
+          "qwen3_moe_decode": (4, 1, 32, 4, 34),
+          "qwen3_moe_verify": (4, 4, 32, 4, 34),
+          "deepseek_moe_decode": (4, 1, 16, 16, 34)}
 
 
 @pytest.mark.parametrize("sms", [132, 114])      # H100 SXM and PCIe

@@ -66,7 +66,7 @@ def test_serve_cli_without_device_flag_raises_without_cuda():
 def test_serve_cli_rejects_unported_arch():
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "deepseek-moe-16b", "--device", "cpu"],
+         "internvl2-2b", "--device", "cpu"],
         env=_env(), capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "not ported" in out.stderr
 
