@@ -59,7 +59,16 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    attention, beside each timed shape, the host time of a call
    (``host_us``) and the device time of a launch (``device_us``,
    torch.profiler); local attention with the softcap is timed in turns
-   with the same shape without it;
+   with the same shape without it. Then the autograd Functions of conv1d,
+   the SSD chunk and local attention (``check_training_functions``) at
+   the LM training shapes (recurrentgemma-2b B=2 S=2,560; mamba2-130m B=8
+   S=1,024) and at gemma2-2b's softcap shape, in both dtypes: the
+   forward's outputs at the kernels' own tolerances, and, as a check of
+   the Function's wiring, the gradients of every input within 1e-4 of
+   its scale of autograd through the plain version (the backward
+   recomputes it), one launch in the forward and none in the backward;
+   the bf16 forward launch timed there beside its device time, the plain
+   version's time and the bound;
 3. the Dom-ST main path: the Forecaster at full width (the ``domst``
    config, 23 watersheds, 400 days, 74 held-out days), params from the
    port's init with a fixed seed. With the launch counts set to 0 it runs
@@ -209,11 +218,30 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    16 heads on 16; 32.75 GB) by whole prefill of the wave, and one bf16
    decode step's logits, kernel against plain, printed on the main
    weights and held within 2^-5 on the rescaled ones;
-12. one JSON line listing every ported kernel with its error, times, bound
+12. LM training (``lm_training_main_path``, ``LM_TRAIN``):
+   recurrentgemma-2b (2 x 2,560 tokens, past its window) and mamba2-130m
+   (8 x 1,024, four SSD chunks) at full width and depth, 5 AdamW steps
+   each through the train CLI's ``train_lm`` (block remat, bf16
+   activations, float32 params and moments, the step donated), params
+   from the port's init (seed 0): launches equal to the prediction
+   (recurrentgemma 34 conv1d and 16 local_attn a step, mamba2 48 conv1d
+   and 48 ssd_chunk), losses finite, the peak memory, the median step
+   and tokens/s; on the live state every leaf's gradient finite and
+   non-zero, one step timed (CUDA events: its device span) and one
+   profiled (device busy time over that span, time by kernel); mamba2's
+   checkpoint, and one request served greedily through
+   ``InferenceEngine.from_train_state``, its serving params equal to the
+   bit and its tokens equal to those of an engine built from that
+   checkpoint; then at full width, reduced
+   depth (recurrentgemma one (R, R, L) repetition, mamba2 two layers) and
+   float32, the loss within 1e-5 and every gradient leaf within 1e-4 of
+   its scale, kernels against ``transformer.PLAIN``;
+13. one JSON line listing every ported kernel with its error, times, bound
    and launches (by model and mode; Pix-Con and the LSTM step by path,
-   forecast and training, with their times at the training shapes), then
+   forecast and training, with their times at the training shapes; conv1d,
+   the SSD chunk and local attention with their training shapes), then
    the line with the card's name and power limit;
-13. the last line, ``{"ok": true, "device": {...}}``.
+14. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card. ``torch.compile`` (the flex_attention yardstick)
 keeps its caches under ``build/`` and compiles in this process. Without CUDA, or run from a directory that does not
@@ -930,7 +958,9 @@ def train_main_path(dev) -> dict:
     # the CLI's TrainConfig at its defaults (lr 1e-3, 100-step horizon)
     tc = TrainConfig(learning_rate=1e-3, total_steps=100, warmup_steps=50,
                      seed=SEED)
-    engine = Engine.for_domst(cfg, tc, stacked=True, device=dev)
+    # donate=False throughout: state0 is stepped again by the profiled
+    # repeat, the plain engine and the accumulation check below
+    engine = Engine.for_domst(cfg, tc, stacked=True, donate=False, device=dev)
     state0 = engine.init_state(domst.init(
         cfg, torch.Generator().manual_seed(SEED), WATERSHEDS))
     held = engine.place_batch(stacked_test_batch(windows))
@@ -1003,7 +1033,8 @@ def train_main_path(dev) -> dict:
     device_ms = {k: per_launch.get(k) for k in ("pixcon", "lstm_cell")}
 
     # kernels against plain through the gradient, then over 5 steps
-    plain = Engine.for_domst(cfg, tc, stacked=True, device=dev, ops=domst.PLAIN)
+    plain = Engine.for_domst(cfg, tc, stacked=True, donate=False, device=dev,
+                             ops=domst.PLAIN)
     b0 = batches[0]
     ok = pixel_orders(cfg, state0.params, b0, domst.KERNELS)
     op = pixel_orders(cfg, state0.params, b0, domst.PLAIN)
@@ -1042,7 +1073,8 @@ def train_main_path(dev) -> dict:
     sgd = dataclasses.replace(tc, optimizer="sgd", grad_clip=0.0)
     upd, gnorm = {}, {}
     for A in (1, 4):
-        e = Engine.for_domst(cfg, sgd, stacked=True, accum_steps=A, device=dev)
+        e = Engine.for_domst(cfg, sgd, stacked=True, accum_steps=A,
+                             donate=False, device=dev)
         st, m = e.step(e.init_state(state0.params), b0)
         upd[A], gnorm[A] = st.opt_state.mu, m["grad_norm"]
     accum_err, accum_leaf = leaf_rel_err(upd[4], upd[1])
@@ -1848,6 +1880,157 @@ def check_local_attn(g, dev) -> dict:
                        "mask; SDPA with a boolean band mask at the shapes "
                        "without a softcap, in by_shape",
             "by_shape": shapes}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, training: the conv1d, SSD-chunk and local-attention Functions
+# ---------------------------------------------------------------------------
+def function_errs(fn, plain, inputs: dict, kw: dict, n_diff: int,
+                  fwd_err) -> tuple[float, float]:
+    """(forward error, gradient error) of a kernel's autograd Function
+    against its plain version on ``inputs``. The forward error is
+    ``fwd_err(outputs, plain outputs)``, which checks them. The gradient
+    error is the largest difference, over the inputs, between the
+    gradients of a random linear function of the first ``n_diff`` outputs
+    through the Function and through the plain version, each over that
+    gradient's largest |value|. The backward recomputes the plain version,
+    so that error checks the Function's wiring (every input gets its own
+    gradient) and not the kernel. The Function's forward must launch the
+    kernel once and its backward none."""
+    import torch
+    grads, outputs = [], []
+    for f in (fn, plain):
+        leaves = {k: v.clone().requires_grad_() for k, v in inputs.items()}
+        before = fn.launches
+        outs = f(**leaves, **kw)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        g = torch.Generator().manual_seed(5)
+        loss = sum((o.float() * torch.randn(o.shape, generator=g).to(o.device)
+                    ).sum() for o in outs[:n_diff])
+        fwd = fn.launches - before
+        loss.backward()
+        check(fwd == (1 if f is fn else 0) and fn.launches - before == fwd,
+              f"{fn.__name__}: {fwd} forward launches, "
+              f"{fn.launches - before - fwd} in the backward")
+        grads.append({k: v.grad.float() for k, v in leaves.items()})
+        outputs.append([o.detach() for o in outs])
+    worst = 0.0
+    for k, want in grads[1].items():
+        scale = float(want.abs().max())
+        check(scale > 0 and bool(torch.isfinite(grads[0][k]).all()),
+              f"{fn.__name__}: no gradient to {k}")
+        worst = max(worst, max_err(grads[0][k], want) / scale)
+    return fwd_err(*outputs), worst
+
+
+def check_training_functions(g, dev, kernels: list) -> None:
+    """Each new autograd Function (conv1d, SSD chunk, local attention)
+    held against its plain version at the LM training shapes
+    (recurrentgemma-2b B=2 S=2,560; mamba2-130m B=8 S=1,024) and, for
+    local attention, at gemma2-2b's softcap shape, in both dtypes: the
+    forward's outputs at the tolerances of ``check_conv1d``,
+    ``check_ssd_chunk`` and ``check_local_attn`` (1e-5 in float32; 2e-2,
+    or one bf16 ulp for the SSD chunk's y, in bf16; conv1d's new tail to
+    the bit, the SSD chunk's float32 states within 1e-5), and the
+    gradients through the Function against autograd through the plain
+    version, a check of its wiring (``function_errs``). Then the bf16
+    forward launch timed at those shapes, with its device time, the plain
+    version's time and the bound, into each kernel's ``training``
+    entry."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv1d.ops import causal_conv1d
+    from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
+    from repro_torch.kernels.local_attn.ops import local_attention_fused
+    from repro_torch.kernels.local_attn.ref import local_attention_ref
+    from repro_torch.kernels.ssd_chunk.ops import ssd_chunk_fused
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+
+    def conv(dtype, B, S, C, act):
+        return (dict(x=rn(g, dev, B, S, C).to(dtype),
+                     w=rn(g, dev, 4, C, s=0.5).to(dtype),
+                     b=rn(g, dev, C, s=0.1).to(dtype)), {"activation": act})
+
+    def ssd(dtype, B, nc, Q, H, N, P):
+        return ssd_inputs(g, dev, dtype, B, nc, Q, H, N, P), {}
+
+    def local(dtype, B, S, Hq, Hkv, D, window, cap):
+        qs, vs = (LOCAL_CAP_Q_SCALE, LOCAL_CAP_V_SCALE) if cap else (1.0, 1.0)
+        return (dict(q=rn(g, dev, B, S, Hq, D, s=qs).to(dtype),
+                     k=rn(g, dev, B, S, Hkv, D).to(dtype),
+                     v=rn(g, dev, B, S, Hkv, D, s=vs).to(dtype)),
+                dict(window=window, softcap=cap))
+    # name, (wrapper, plain, differentiable outputs, kernel symbol), make,
+    # shape, work(shape, esize) -> (bytes, operations)
+    cases = [
+        ("conv1d", "rg_train B=2 S=2560 C=2560", conv, (2, 2560, 2560, "none"),
+         lambda B, S, C, act, e: conv1d_work(B, S, C, 4, e, act == "silu")),
+        ("conv1d", "mamba2_train B=8 S=1024 C=1792 SiLU", conv,
+         (8, 1024, 1792, "silu"),
+         lambda B, S, C, act, e: conv1d_work(B, S, C, 4, e, act == "silu")),
+        ("ssd_chunk", "mamba2_train B=8 nc=4 Q=256 H=24 N=128 P=64", ssd,
+         (8, 4, 256, 24, 128, 64),
+         lambda B, nc, Q, H, N, P, e: ssd_work(B, nc, Q, H, N, P, e)),
+        ("local_attn", "rg_train B=2 S=2560 Hq=10 Hkv=1 D=256 window=2048",
+         local, (2, 2560, 10, 1, 256, 2048, 0.0),
+         lambda B, S, Hq, Hkv, D, w, cap, e: local_work(B, S, Hq, Hkv, D, w,
+                                                         True, e)),
+        ("local_attn", "g2_softcap B=1 S=4608 Hq=8 Hkv=4 D=256 window=4096 "
+         "softcap=50", local, (1, 4608, 8, 4, 256, 4096, 50.0),
+         lambda B, S, Hq, Hkv, D, w, cap, e: local_work(B, S, Hq, Hkv, D, w,
+                                                         True, e))]
+    fns = {"conv1d": (causal_conv1d, causal_conv1d_ref, 1, "conv1d_kernel"),
+           "ssd_chunk": (ssd_chunk_fused, ssd_chunk_ref, 2,
+                         "ssd_chunk_mma_kernel"),
+           "local_attn": (local_attention_fused, local_attention_ref, 1,
+                          "local_attn_mma_kernel")}
+
+    def fwd_err(name, what, dtype):
+        f32 = dtype == torch.float32
+
+        def err(outs, refs):
+            if name == "ssd_chunk":
+                check_kernel_case(name, what + " states", outs[1], refs[1],
+                                  ATOL_KERNEL)
+                if not f32:
+                    return check_bf16_ulp(f"{name} {what} y", outs[0],
+                                          refs[0])["max_abs_err"]
+            if name == "conv1d":
+                check_kernel_case(name, what + " new tail", outs[1], refs[1],
+                                  0.0)
+            return check_kernel_case(name, what, outs[0], refs[0],
+                                     ATOL_KERNEL if f32 else ATOL_BF16)
+        return err
+    by_name = {k["name"]: k for k in kernels}
+    for name, what, make, shape, work in cases:
+        fn, plain, n_diff, symbol = fns[name]
+        errs, fwd = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).split(".")[-1]
+            a, kw = make(dtype, *shape)
+            fwd[tag], errs[tag] = function_errs(
+                fn, plain, a, kw, n_diff,
+                fwd_err(name, f"{what} {tag} Function forward", dtype))
+        print(f"  {name} {what}: gradients through the Function vs plain "
+              f"(wiring), worst input {max(errs.values()):.3e} of its scale "
+              f"{errs}")
+        check(max(errs.values()) <= GRAD_REL, f"{name} {what}: gradient "
+              f"differs by {errs} of its scale > {GRAD_REL}")
+        a, kw = make(torch.bfloat16, *shape)
+        call = lambda: fn(**a, **kw)  # noqa: E731
+        ms = time_ms(call, iters=20, warmup=3)
+        dev_us = launch_device_us(call, symbol, n=10)
+        plain_ms = time_ms(lambda: plain(**a, **kw), iters=5, warmup=1)
+        b_ms, b_by = bound_ms(*work(*shape, 2), BF16_OPS_PER_S
+                              if name != "conv1d" else FP32_OPS_PER_S)
+        print(f"    bf16 forward launch {ms * 1e3:.2f} us (device "
+              f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'}), "
+              f"plain {plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us "
+              f"({b_by})")
+        by_name[name].setdefault("training", {"by_shape": []})["by_shape"].append(
+            {"shape": what, "dtype": "bfloat16", "ms": ms, "device_us": dev_us,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "forward_max_abs_err": fwd, "grad_rel_err": errs})
 
 
 def requests_of(vocab: int, lens, gen: int) -> list:
@@ -3219,6 +3402,197 @@ def moe_main_path(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: LM training
+# ---------------------------------------------------------------------------
+# recurrentgemma-2b past its 2,048-token window and mamba2-130m over four
+# 256-token SSD chunks, at full width and depth, through the train CLI's
+# ``train_lm`` (block remat, bf16 activations, float32 params and AdamW,
+# the step donated). Launches a step, from a CPU rehearsal of the step at
+# full depth: the forward, plus the rematted pattern repetitions again in
+# the backward (recurrentgemma: 8 x (R, R, L) rematted and an (R, R)
+# suffix that is not; mamba2: 24 x (S)); the backward through the plain
+# versions launches none. ``check_layers``: the depth of the float32
+# kernel-against-plain gradient check (one repetition of the pattern).
+LM_TRAIN = {
+    "recurrentgemma-2b": {"batch": 2, "seq": 2560, "steps": 5,
+                          "check_layers": 3,
+                          "per_step": {"conv1d": 18 + 16, "local_attn": 8 + 8}},
+    "mamba2-130m": {"batch": 8, "seq": 1024, "steps": 5, "check_layers": 2,
+                    "per_step": {"conv1d": 24 + 24, "ssd_chunk": 24 + 24}},
+}
+# the hand-off: one request served greedily from the live trained state
+# and from its checkpoint
+HANDOFF_PROMPT, HANDOFF_GEN = 64, 16
+
+
+def lm_grad_check(arch: str, spec: dict, dev) -> dict:
+    """``lm_loss`` at full width and ``spec["check_layers"]`` layers, in
+    float32 with block remat, on the main path's batch shape and weights
+    from the port's init: the loss and every gradient leaf through the
+    kernels' Functions against autograd through ``transformer.PLAIN``;
+    every leaf's gradient through the kernels finite and non-zero."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import flatten, unflatten
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(arch).replace(num_layers=spec["check_layers"])
+    params = init_params(cfg, dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_token_batch(
+        cfg, spec["batch"], spec["seq"], seed=SEED).items()}
+    like = tfm.model_params(cfg, lambda *a: None)
+    losses, grads = [], []
+    for ops in (tfm.KERNELS, tfm.PLAIN):
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in flatten(params).items()}
+        loss, _ = tfm.lm_loss(unflatten(leaves, like), cfg, batch,
+                              dtype=torch.float32, remat=True, ops=ops)
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        losses.append(float(loss.detach()))
+        grads.append(dict(zip(leaves, g)))
+        del loss, g, leaves
+    bad = [k for k, v in grads[0].items()
+           if not (bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0)]
+    err, leaf = leaf_rel_err(grads[0], grads[1])
+    loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+    return {"layers": spec["check_layers"], "loss": losses[0], "loss_rel_err": loss_err, "grad_rel_err": err,
+            "worst_leaf": leaf, "leaves": len(grads[0]), "bad_leaves": bad}
+
+
+def lm_training_main_path(dev) -> dict:
+    """recurrentgemma-2b and mamba2-130m trained at full width and depth
+    through the train CLI's ``train_lm`` (``LM_TRAIN``), each with the
+    launch counts set to 0 just before and read just after: they must
+    equal the prediction. Then, on the live state: every leaf's gradient
+    finite and non-zero (a gradient dropped through ctypes would leave the
+    weights below a kernel with none), one step timed by CUDA events and
+    one profiled (its device busy time over that step's span, time by
+    kernel); for mamba2-130m the hand-off, one request served greedily
+    through ``InferenceEngine.from_train_state`` and through an engine
+    built from the saved checkpoint, their params and tokens equal. Last, the float32 gradients at
+    reduced depth, kernels against plain (``lm_grad_check``)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import TokenSource
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import InferenceEngine, Request, Scheduler
+    from repro_torch.train import accumulate_grads
+    out = {}
+    for arch, spec in LM_TRAIN.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        B, S, n = spec["batch"], spec["seq"], spec["steps"]
+        argv = ["--arch", arch, "--batch-size", str(B), "--seq-len", str(S),
+                "--steps", str(n), "--seed", str(SEED)]
+        ckpt = ROOT / "build" / "chip_smoke" / f"{arch}_train.npz"
+        if arch == "mamba2-130m":
+            argv += ["--ckpt", str(ckpt)]
+        print(f"  python -m repro_torch.launch.train {' '.join(argv)}")
+        torch.cuda.synchronize()
+        reset_launches()
+        rec, eng, state = train_cli.train_lm(train_cli.parse_args(argv))
+        launches = read_launches()
+        want = {name: 0 for name in launches}
+        want.update({k: v * n for k, v in spec["per_step"].items()})
+        print(f"  {arch}: {rec['params'] / 1e9:.3f} B params, {n} steps of "
+              f"{B} x {S} tokens: loss {rec['first_loss']:.4f} -> "
+              f"{rec['last_loss']:.4f}, step p50 {rec['step_p50_s']:.4f} s "
+              f"({B * S / rec['step_p50_s']:.1f} tokens/s), peak memory "
+              f"{rec['peak_memory_bytes'] / 1e9:.3f} GB; launches {launches}")
+        check(launches == want, f"{arch} training launches {launches} != "
+              f"predicted {want}")
+        check(rec["steps"] == n and bool(np.isfinite(
+            [rec["first_loss"], rec["last_loss"]]).all()),
+            f"{arch}: steps {rec['steps']}, losses {rec['first_loss']} "
+            f"{rec['last_loss']}")
+        source = TokenSource(eng.cfg, B, S, seed=SEED)
+        batch = eng.place_batch(source.host_batch(n))
+        grads, loss, _ = accumulate_grads(eng.loss_fn, state.params, batch, 1)
+        bad = [k for k, v in grads.items()
+               if not (bool(torch.isfinite(v).all())
+                       and float(v.abs().max()) > 0)]
+        print(f"  every leaf's gradient at full depth: {len(grads) - len(bad)}"
+              f" of {len(grads)} finite and non-zero (loss {float(loss):.4f})")
+        check(not bad and bool(torch.isfinite(loss).all()),
+              f"{arch}: leaves without a finite non-zero gradient: {bad[:8]}")
+        del grads, loss
+        holder = [state]
+
+        def one_step():
+            holder[0], _ = eng.step(holder[0], batch)
+        one_step()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        one_step()
+        end.record()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        span_s = start.elapsed_time(end) * 1e-3
+        prof = device_breakdown(one_step, top=16)
+        busy = prof["device_busy_s"]
+        share = None if busy is None else busy / span_s
+        print(f"  one step: wall {wall_s:.4f} s, device span {span_s:.4f} s; "
+              f"a profiled step: device busy {busy} s (wall {prof['wall_s']:.4f}"
+              f" s under the profiler), busy share of the span {share}")
+        for r in prof["by_kernel"]:
+            print(f"    {r['device_ms']:9.3f} ms  {r['calls']:6d}  {r['kernel']}")
+        res = {"launches": {"train": launches}, "profile": prof,
+               "record": {k: v for k, v in rec.items()},
+               "tokens_per_s": B * S / rec["step_p50_s"],
+               "step_wall_s": wall_s, "step_device_span_s": span_s,
+               "device_busy_share": share}
+        if arch == "mamba2-130m":
+            rng = np.random.default_rng(SEED)
+            prompt = rng.integers(0, eng.cfg.vocab_size,
+                                  HANDOFF_PROMPT).astype(np.int32)
+            kw = dict(slots=1, max_len=HANDOFF_PROMPT + HANDOFF_GEN,
+                      page_size=16)
+
+            def serve(engine, st):
+                return Scheduler(engine, st).run([Request(
+                    rid=0, prompt=prompt, max_new=HANDOFF_GEN)])[0]
+            live_eng, live_st = InferenceEngine.from_train_state(
+                eng, holder[0], **kw)
+            cold = InferenceEngine(eng.cfg, device=dev, **kw)
+            cold_st = cold.init_state(cold.restore_params(
+                str(ckpt), init_params(eng.cfg, dev, cold.dtype)))
+            same = all(torch.equal(a, b) for a, b in zip(
+                _leaves(live_st.params), _leaves(cold_st.params)))
+            live, saved = serve(live_eng, live_st), serve(cold, cold_st)
+            print(f"  hand-off: serving params from_train_state and from the "
+                  f"checkpoint equal to the bit: {same}; streams {live} and "
+                  f"{saved}")
+            check(same and len(live) == HANDOFF_GEN
+                  and list(live) == list(saved),
+                  f"{arch} hand-off: params equal {same}, the live state's "
+                  f"stream {live}, the checkpoint's {saved}")
+            res["handoff_tokens"] = list(map(int, live))
+        del state, holder, eng, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        c = lm_grad_check(arch, spec, dev)
+        print(f"  float32, {c['layers']} layers: loss {c['loss']:.6f} within "
+              f"{c['loss_rel_err']:.3e}, worst leaf {c['worst_leaf']} "
+              f"{c['grad_rel_err']:.3e} of its largest |grad| ({c['leaves']} "
+              "leaves)")
+        check(not c["bad_leaves"], f"{arch}: leaves without a finite non-zero "
+              f"gradient through the kernels: {c['bad_leaves']}")
+        check(c["loss_rel_err"] <= 1e-5 and c["grad_rel_err"] <= GRAD_REL,
+              f"{arch} float32 gradients, kernels vs plain: loss "
+              f"{c['loss_rel_err']}, worst leaf {c['worst_leaf']} "
+              f"{c['grad_rel_err']} > {GRAD_REL}")
+        res["grad_check"] = c
+        print("  " + json.dumps({arch: {k: v for k, v in res.items()
+                                        if k != "profile"}}))
+        out[f"{arch} training"] = res
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3317,6 +3691,7 @@ def main() -> int:
     kernels = [check_pixcon(g, dev), check_lstm(g, dev), check_paged_attn(g, dev),
                check_conv1d(g, dev), check_ssd_chunk(g, dev),
                check_local_attn(g, dev)]
+    check_training_functions(g, dev, kernels)
     print(f"[3] main path: Forecaster, domst, 23 watersheds x 400 days (at {time.perf_counter() - T_START:.0f} s)")
     launches, device_ms = main_path(dev)
     print(f"[4] main path: Dom-ST training, domst, 23 watersheds x 400 days, {TRAIN_EPOCHS} epochs (at {time.perf_counter() - T_START:.0f} s)")
@@ -3338,6 +3713,8 @@ def main() -> int:
     by_model["policies"] = policy_main_path(dev)
     print(f"[11] main path: MoE serving, qwen3-moe-30b-a3b and deepseek-moe-16b (at {time.perf_counter() - T_START:.0f} s)")
     by_model.update(moe_main_path(dev))
+    print(f"[12] main path: LM training, recurrentgemma-2b and mamba2-130m (at {time.perf_counter() - T_START:.0f} s)")
+    by_model.update(lm_training_main_path(dev))
     for res in by_model.values():
         for counts in res["launches"].values():
             for name, c in counts.items():
@@ -3360,7 +3737,7 @@ def main() -> int:
             arch: device_ms_per_launch(res["profile"]).get(k["name"])
             for arch, res in by_model.items()
             if arch in k["launches_by_mode"] and res["profile"]}
-    print(f"[12] all phases passed in {time.perf_counter() - T_START:.1f} s")
+    print(f"[13] all phases passed in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

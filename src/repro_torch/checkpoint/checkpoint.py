@@ -12,7 +12,12 @@ each entry is read, repacked by ``convert.to_port_layout`` and checked
 against the example's shape, so one checkpoint file drives both packages.
 An LM's ``params`` restore from the reference's key paths (its scanned
 ``blocks`` stacked over the repetitions) into the port's per-layer tree
-(``restore_lm_params``).
+(``restore_lm_params``). An LM training state (``save`` and ``restore``
+given the model's config) keeps its params and moments flat, keyed by the
+port's per-layer paths (``layers/3/attn/wq``); they are written under the
+reference's paths, each repetition of the layer pattern stacked into
+``blocks`` (``convert.lm_params_to_jax``), and read back through
+``restore_lm_params``, so an LM checkpoint also crosses packages.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.convert import (
-    from_port_layout, lm_params_from_jax, to_port_layout,
+    flatten, from_port_layout, lm_params_from_jax, lm_params_to_jax,
+    to_port_layout, unflatten,
 )
 
 # a ``repro_torch.train.TrainState``; not imported, since the training
@@ -32,28 +38,45 @@ from repro_torch.convert import (
 TrainState = Any
 
 
-def _entries(state: TrainState) -> Dict[str, np.ndarray]:
-    """npz name -> array in the reference's layout."""
+def _entries(state: TrainState, cfg=None) -> Dict[str, np.ndarray]:
+    """npz name -> array in the reference's layout; ``cfg``, an LM's
+    config, restacks its flat per-layer trees into ``blocks``."""
     single = state.rng.dim() == 1
 
     def leaf(key, t):
         a = t.detach().cpu().numpy()
         return from_port_layout(key, a[0] if single else a)
 
+    def tree(prefix, flat):
+        if cfg is None:
+            return {f"{prefix}/{k}": leaf(k, v) for k, v in flat.items()}
+        jtree = lm_params_to_jax(unflatten(
+            {k: v[0] if single else v for k, v in flat.items()},
+            _structure(cfg)), cfg)
+        return {f"{prefix}/{k}": v for k, v in flatten(jtree).items()}
+
     opt = state.opt_state
-    out = {f"params/{k}": leaf(k, v) for k, v in state.params.items()}
-    out.update({f"opt_state/mu/{k}": leaf(k, v) for k, v in opt.mu.items()})
-    out.update({f"opt_state/nu/{k}": leaf(k, v) for k, v in opt.nu.items()})
+    out = tree("params", state.params)
+    out.update(tree("opt_state/mu", opt.mu))
+    if opt.nu:
+        out.update(tree("opt_state/nu", opt.nu))
     out["opt_state/step"] = leaf("", opt.step)
     out["step"] = state.step.detach().cpu().numpy()
     out["rng"] = state.rng.detach().cpu().numpy()
     return out
 
 
-def save(path: str, state: TrainState) -> None:
+def _structure(cfg):
+    """The LM param tree of ``cfg`` with no leaves: what ``unflatten``
+    rebuilds the flat state's trees on."""
+    from repro_torch.models.transformer import model_params
+    return model_params(cfg, lambda *a: None)
+
+
+def save(path: str, state: TrainState, cfg=None) -> None:
     """Write ``state`` to ``path`` atomically (a temporary file in the same
-    directory, then a rename)."""
-    arrays = _entries(state)
+    directory, then a rename). An LM state needs its model's ``cfg``."""
+    arrays = _entries(state, cfg)
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
@@ -81,13 +104,25 @@ def _read(data, name: str, key: str, ex: torch.Tensor,
     return torch.as_tensor(arr, dtype=ex.dtype, device=ex.device).contiguous()
 
 
-def restore(path: str, example: TrainState) -> TrainState:
+def restore(path: str, example: TrainState, cfg=None) -> TrainState:
     """Restore a full training state (either package's) into ``example``'s
-    keys, shapes, dtypes and devices."""
+    keys, shapes, dtypes and devices. An LM state needs its model's
+    ``cfg``: its params and moments are read through
+    ``restore_lm_params``."""
     single = example.rng.dim() == 1
     opt = example.opt_state
+
+    def lm_tree(prefix, ex):
+        if not single:
+            raise ValueError("an LM training state has no replica axis")
+        got = restore_lm_params(path, unflatten(
+            {k: v[0] for k, v in ex.items()}, _structure(cfg)), prefix)
+        return {k: v[None] for k, v in flatten(got).items()}
+
     with np.load(path) as data:
         def tree(prefix, ex):
+            if cfg is not None:
+                return lm_tree(prefix, ex) if ex else {}
             return {k: _read(data, f"{prefix}/{k}", k, v, single)
                     for k, v in ex.items()}
         return example._replace(

@@ -187,9 +187,9 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The reference's ``TrainConfig`` less what the port's Dom-ST training
-    does not read (the compute and param dtypes, remat, FSDP: the port
-    trains in float32 on one card)."""
+    """The reference's ``TrainConfig`` less what the port does not read
+    (the compute and param dtypes and FSDP: the port keeps float32 params
+    and moments on one card)."""
 
     learning_rate: float = 1e-3
     weight_decay: float = 0.0
@@ -201,6 +201,7 @@ class TrainConfig:
     b1: float = 0.9
     b2: float = 0.95
     eps: float = 1e-8
+    remat: str = "none"               # none | block | full
     grad_accum: int = 1               # microbatches per step (activation memory / A)
     seed: int = 0
 

@@ -28,6 +28,13 @@ suffix). Leaves keep the reference's shapes and names, in the attention
 FFN keeps its ``router``, its experts stacked on a leading expert axis
 (``w_gate``, ``w_up``, ``w_down``) and its ``shared`` MLP, and
 deepseek-moe's dense first layer comes from ``prefix``.
+:func:`lm_params_to_jax` is its inverse, which restacks the repetitions
+for the checkpoints the port writes in the reference's layout.
+
+The LM training engine keeps the per-layer tree flat, as the Dom-ST
+params are: :func:`flatten` keys each leaf by its '/'-joined path
+(``layers/3/attn/wq``) and :func:`unflatten` rebuilds the tree from such
+a dict on the model's structure.
 """
 from __future__ import annotations
 
@@ -43,15 +50,32 @@ _LSTM_LEAF = re.compile(r"(^|/)lstm\d+/(wx|wh|b)$")
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
-    """Nested dict -> flat dict keyed by '/'-joined key paths."""
+    """Nested dict (lists as their indices) -> flat dict keyed by
+    '/'-joined key paths."""
     out: Dict[str, Any] = {}
     for k, v in tree.items():
         key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, (list, tuple)):
+            v = {str(i): e for i, e in enumerate(v)}
         if isinstance(v, Mapping):
             out.update(flatten(v, key))
         else:
             out[key] = v
     return out
+
+
+def unflatten(flat: Mapping[str, Any], like: Any) -> Any:
+    """The inverse of :func:`flatten`: the tree of ``like`` (a tree of the
+    same structure with any leaves, as ``transformer.model_params(cfg,
+    lambda *a: None)`` gives an LM's) with its leaves taken from ``flat``.
+    Groups without leaves (a non-affine norm's ``{}``) are kept."""
+    def fill(t, key):
+        if isinstance(t, Mapping):
+            return {k: fill(v, f"{key}{k}/") for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [fill(v, f"{key}{i}/") for i, v in enumerate(t)]
+        return flat[key[:-1]]
+    return fill(like, "")
 
 
 def to_port_layout(key: str, arr: np.ndarray) -> np.ndarray:
@@ -114,3 +138,43 @@ def lm_params_from_jax(tree: Mapping[str, Any],
     layers += [nested(lp) for lp in tree.get("suffix", ())]
     return {"embed": nested(tree["embed"]),
             "final_norm": nested(tree["final_norm"]), "layers": layers}
+
+
+def lm_params_to_jax(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The inverse of :func:`lm_params_from_jax`: the port's per-layer tree
+    (tensors or arrays) -> the reference's nested dict of float32 numpy
+    arrays, ``prefix`` and ``suffix`` tuples and ``blocks`` stacked over
+    the repetitions, as ``cfg``'s stack plan lays them out."""
+    from repro_torch.models.transformer import stack_plan
+
+    def arr(t):
+        if isinstance(t, torch.Tensor):
+            t = t.detach().cpu().numpy()
+        return np.asarray(t, np.float32)
+
+    def nested(t):
+        return {k: nested(v) if isinstance(v, Mapping) else arr(v)
+                for k, v in t.items()}
+
+    def stacked(trees):
+        if isinstance(trees[0], Mapping):
+            return {k: stacked([t[k] for t in trees]) for k in trees[0]}
+        return np.stack([arr(t) for t in trees])
+
+    prefix, pat, n_rep, suffix = stack_plan(cfg)
+    layers = list(params["layers"])
+    if len(layers) != len(prefix) + n_rep * len(pat) + len(suffix):
+        raise ValueError(f"{len(layers)} layers do not fit {cfg.name}'s "
+                         "stack plan")
+    out: Dict[str, Any] = {"embed": nested(params["embed"]),
+                           "final_norm": nested(params["final_norm"])}
+    if prefix:
+        out["prefix"] = tuple(nested(lp) for lp in layers[:len(prefix)])
+    if n_rep:
+        body = layers[len(prefix):len(prefix) + n_rep * len(pat)]
+        out["blocks"] = {str(i): stacked(body[i::len(pat)])
+                         for i in range(len(pat))}
+    if suffix:
+        out["suffix"] = tuple(nested(lp) for lp in layers[len(layers)
+                                                          - len(suffix):])
+    return out

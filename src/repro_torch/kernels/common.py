@@ -1,12 +1,13 @@
 """Input checks shared by the kernel wrappers: each CUDA kernel takes
 contiguous tensors of fixed shapes and dtypes on one device, and a wrapper
 raises on anything else rather than launch on it. Also the current
-stream's handle, which every launch needs, and the SM count the launch
-plans are sized by."""
+stream's handle, which every launch needs, the SM count the launch plans
+are sized by, and the backward of the wrappers' autograd Functions
+(``plain_grads``)."""
 from __future__ import annotations
 
 import functools
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -64,3 +65,25 @@ def check_activations(what: str, tensors: Dict[str, torch.Tensor],
             raise ValueError(f"{what}: {name} must be {shapes[name]}, "
                              f"got {tuple(t.shape)}")
     return DTYPE_CODES.get(first.dtype, 0)
+
+
+def plain_grads(plain: Callable, saved: Sequence[Optional[torch.Tensor]],
+                needs: Sequence[bool],
+                grad_outputs: Sequence[Optional[torch.Tensor]]) -> tuple:
+    """The backward of a kernel's autograd Function: ``plain`` (the
+    kernel's plain version) recomputed from the ``saved`` inputs and
+    differentiated by autograd. Returns the gradient of each saved input
+    where ``needs`` says so, else None; outputs whose ``grad_outputs``
+    entry is None (the non-differentiable ones) take no part. No kernel is
+    launched: the JAX kernels have no backward either."""
+    inputs = [None if t is None else t.detach().requires_grad_(n)
+              for t, n in zip(saved, needs)]
+    with torch.enable_grad():
+        outs = plain(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grad_outputs)
+                 if g is not None and o.requires_grad]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in pairs], [t for t, n in zip(inputs, needs) if n],
+            [g for _, g in pairs], allow_unused=True))
+    return tuple(next(grads) if n else None for n in needs)

@@ -26,6 +26,15 @@ reference's model code sums bfloat16 products: in bfloat16 the two differ
 by a few ulps, in float32 they agree. On a CPU tensor the wrapper
 computes the plain version in ``ref.py``. On a CUDA tensor it launches the
 kernel or raises; nothing falls back.
+
+Training: where a gradient is wanted (grad mode on and an input that
+requires one), the launch goes through :class:`CausalConv1d`, an autograd
+Function whose forward is the same launch and whose backward recomputes
+the conv with the plain version from the saved inputs and differentiates
+it (x, w, b and a given tail). The new tail is non-differentiable: the
+training forward discards it. The JAX kernel has no backward either: the
+reference trains through ``jax.grad`` of its plain model code. Serving,
+under ``inference_mode``, keeps the direct launch.
 """
 from __future__ import annotations
 
@@ -38,7 +47,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (
-    DTYPE_CODES, check_activations, sm_count, stream_handle,
+    DTYPE_CODES, check_activations, plain_grads, sm_count, stream_handle,
 )
 from repro_torch.kernels.conv1d.ref import ACTIVATIONS, causal_conv1d_ref
 
@@ -132,6 +141,38 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
             return causal_conv1d_ref(x, w, b, activation=activation, tail=tail)
         if kind != "cuda":
             raise ValueError(f"causal_conv1d: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad or b.requires_grad
+            or (tail is not None and tail.requires_grad)):
+        return CausalConv1d.apply(x, w, b, tail, activation)
+    return _launch(x, w, b, tail, activation)
+
+
+class CausalConv1d(torch.autograd.Function):
+    """The kernel's launch forward; backward by autograd through the plain
+    version, recomputed from the saved inputs. The new tail is
+    non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, tail, activation):
+        ctx.save_for_backward(x, w, b, tail)
+        ctx.activation = activation
+        y, new = _launch(x, w, b, tail, activation)
+        ctx.mark_non_differentiable(new)
+        return y, new
+
+    @staticmethod
+    def backward(ctx, g_y, _g_tail):
+        return (*plain_grads(
+            lambda x, w, b, tail: causal_conv1d_ref(
+                x, w, b, activation=ctx.activation, tail=tail),
+            ctx.saved_tensors, ctx.needs_input_grad[:4], (g_y, None)), None)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            tail: Optional[torch.Tensor], activation: str
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs and launch the kernel on tensors on the card."""
     try:
         (B, S, C), (K, _) = x.shape, w.shape
     except ValueError:

@@ -36,6 +36,15 @@ for the P.V product (the Pallas kernel keeps it in float32), which moves
 an output by up to ~2^-9 of its row's largest |v|. On a CPU tensor
 the wrapper computes the plain version in ``ref.py``. On a CUDA tensor it
 launches the kernel or raises; nothing falls back.
+
+Training: where a gradient is wanted (grad mode on and an input that
+requires one), the launch goes through :class:`LocalAttention`, an
+autograd Function whose forward is the same launch and whose backward
+recomputes the attention with the plain version from the saved q, k and
+v (``window``, ``causal`` and ``softcap`` passed through) and
+differentiates it. The JAX kernel has no backward either: the reference
+trains through ``jax.grad`` of its plain ``local_attention``. Serving,
+under ``inference_mode``, keeps the direct launch.
 """
 from __future__ import annotations
 
@@ -47,7 +56,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (
-    DTYPE_CODES, check_activations, stream_handle,
+    DTYPE_CODES, check_activations, plain_grads, stream_handle,
 )
 from repro_torch.kernels.local_attn.ref import local_attention_ref
 
@@ -109,6 +118,35 @@ def local_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if kind != "cuda":
             raise ValueError(f"local_attention_fused: no kernel for device "
                              f"{q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return LocalAttention.apply(q, k, v, window, causal, softcap)
+    return _launch(q, k, v, window, causal, softcap)
+
+
+class LocalAttention(torch.autograd.Function):
+    """The kernel's launch forward; backward by autograd through the plain
+    version, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.band = (window, causal, softcap)
+        return _launch(q, k, v, window, causal, softcap)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        window, causal, softcap = ctx.band
+        return (*plain_grads(
+            lambda q, k, v: local_attention_ref(
+                q, k, v, window=window, causal=causal, softcap=softcap),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], (g_out,)),
+            None, None, None)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+            causal: bool, softcap: float) -> torch.Tensor:
+    """Check the inputs and launch the kernel on tensors on the card."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"local_attention_fused: q must be (B,S,Hq,D) and "
                          f"k/v (B,S,Hkv,D), got {tuple(q.shape)} and "

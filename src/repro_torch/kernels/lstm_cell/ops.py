@@ -42,7 +42,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_inputs, sm_count, stream_handle
+from repro_torch.kernels.common import (
+    check_inputs, plain_grads, sm_count, stream_handle,
+)
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 
 MAX_SMEM_FLOATS = 12 * 1024  # D+H the kernel takes (its x|h rows in shared memory)
@@ -153,15 +155,8 @@ class LstmCell(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_h, g_c):
-        needs = ctx.needs_input_grad
-        inputs = [t.detach().requires_grad_(n)
-                  for t, n in zip(ctx.saved_tensors, needs)]
-        with torch.enable_grad():
-            outs = lstm_cell_ref(*inputs)
-            grads = iter(torch.autograd.grad(
-                outs, [t for t, n in zip(inputs, needs) if n], (g_h, g_c),
-                allow_unused=True))
-        return tuple(next(grads) if n else None for n in needs)
+        return plain_grads(lstm_cell_ref, ctx.saved_tensors,
+                           ctx.needs_input_grad, (g_h, g_c))
 
 
 def _launch(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,

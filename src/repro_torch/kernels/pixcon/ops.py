@@ -39,7 +39,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_inputs, stream_handle
+from repro_torch.kernels.common import check_inputs, plain_grads, stream_handle
 from repro_torch.kernels.pixcon.ref import pixcon_gate_ref
 
 MAX_PIXELS = 8192            # w (P floats) sits in the kernel's shared memory
@@ -112,16 +112,11 @@ class PixconGate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, _g_w):
-        needs = ctx.needs_input_grad[:6]
-        inputs = [t.detach().requires_grad_(n)
-                  for t, n in zip(ctx.saved_tensors, needs)]
-        with torch.enable_grad():
-            out, _ = pixcon_gate_ref(*inputs, temperature=ctx.temperature,
-                                     normalize=ctx.normalize)
-            grads = iter(torch.autograd.grad(
-                out, [t for t, n in zip(inputs, needs) if n], g_out,
-                allow_unused=True))
-        return (*(next(grads) if n else None for n in needs), None, None)
+        return (*plain_grads(
+            lambda *t: pixcon_gate_ref(*t, temperature=ctx.temperature,
+                                       normalize=ctx.normalize),
+            ctx.saved_tensors, ctx.needs_input_grad[:6], (g_out, None)),
+            None, None)
 
 
 def _launch(x: torch.Tensor, feats: torch.Tensor, w1: torch.Tensor,

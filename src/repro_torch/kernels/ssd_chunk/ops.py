@@ -28,6 +28,15 @@ looked up in a cache, and the arguments (plan included) packed into one
 ctypes argument. On a CPU tensor the wrapper computes the plain version
 in ``ref.py``. On a CUDA tensor it launches the kernel or raises; nothing
 falls back.
+
+Training: where a gradient is wanted (grad mode on and an input that
+requires one), the launch goes through :class:`SsdChunk`, an autograd
+Function whose forward is the same launch and whose backward recomputes
+both outputs with the plain version from the saved inputs and
+differentiates them (``Cc``, ``Bc``, ``xdt`` and ``dA_cs``, through
+``y_diag`` and ``states``). The JAX kernel has no backward either: the
+reference trains through ``jax.grad`` of its plain ``ssd_chunked``.
+Serving, under ``inference_mode``, keeps the direct launch.
 """
 from __future__ import annotations
 
@@ -40,7 +49,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (
-    DTYPE_CODES, check_activations, stream_handle,
+    DTYPE_CODES, check_activations, plain_grads, stream_handle,
 )
 from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
 
@@ -135,6 +144,31 @@ def ssd_chunk_fused(Cc: torch.Tensor, Bc: torch.Tensor, xdt: torch.Tensor,
             return ssd_chunk_ref(Cc, Bc, xdt, dA_cs)
         if kind != "cuda":
             raise ValueError(f"ssd_chunk_fused: no kernel for device {Cc.device}")
+    if torch.is_grad_enabled() and (
+            Cc.requires_grad or Bc.requires_grad or xdt.requires_grad
+            or dA_cs.requires_grad):
+        return SsdChunk.apply(Cc, Bc, xdt, dA_cs)
+    return _launch(Cc, Bc, xdt, dA_cs)
+
+
+class SsdChunk(torch.autograd.Function):
+    """The kernel's launch forward; backward by autograd through the plain
+    version of both outputs, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, Cc, Bc, xdt, dA_cs):
+        ctx.save_for_backward(Cc, Bc, xdt, dA_cs)
+        return _launch(Cc, Bc, xdt, dA_cs)
+
+    @staticmethod
+    def backward(ctx, g_y, g_states):
+        return plain_grads(ssd_chunk_ref, ctx.saved_tensors,
+                           ctx.needs_input_grad, (g_y, g_states))
+
+
+def _launch(Cc: torch.Tensor, Bc: torch.Tensor, xdt: torch.Tensor,
+            dA_cs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs and launch the kernel on tensors on the card."""
     if Cc.dim() != 5 or xdt.dim() != 5:
         raise ValueError(f"ssd_chunk_fused: Cc must be (B,nc,Q,H,N) and xdt "
                          f"(B,nc,Q,H,P), got {tuple(Cc.shape)} and "

@@ -9,8 +9,10 @@ Mamba-2 dual form, per (batch, chunk, head), all in float32:
     state    = xdt^T @ (B * exp(dA_cs[-1] - dA_cs)[:, None])   (P, N)
 
 with y_diag cast to xdt's dtype and the state kept in float32. The upper
-triangle is selected away, never multiplied: exp of a positive segment
-sum can overflow to inf, and inf * 0 is NaN.
+triangle is selected away before the exp, never multiplied: exp of a
+positive segment sum can overflow to inf, and inf * 0 is NaN, in the
+product and in its gradient (the training backward differentiates this
+function) alike.
 
 The reference's model code (``ssm.ssd_chunked``) rounds C @ B^T * L and
 the state's product through the activation dtype; in bfloat16 the two
@@ -35,7 +37,7 @@ def ssd_chunk_ref(Cc: torch.Tensor, Bc: torch.Tensor, xdt: torch.Tensor,
     Q = dA.shape[-1]
     seg = dA[..., :, None] - dA[..., None, :]                   # (B,nc,H,Q,Q)
     lower = torch.ones((Q, Q), dtype=torch.bool, device=dA.device).tril()
-    L = torch.where(lower, torch.exp(seg), 0.0)
+    L = torch.exp(torch.where(lower, seg, float("-inf")))
     y = (C @ Bm.transpose(-1, -2) * L) @ x
     decay = torch.exp(dA[..., -1:] - dA)                        # (B,nc,H,Q)
     states = x.transpose(-1, -2) @ (Bm * decay[..., None])     # (B,nc,H,P,N)

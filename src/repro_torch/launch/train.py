@@ -1,12 +1,24 @@
-"""Training launcher: Dom-ST multi-watershed training on one device.
+"""Training launcher: Dom-ST multi-watershed training and LM training
+on one device.
 
-The reference's ``repro/launch/train.py`` in its Dom-ST modes, through
-the port's engine (``repro_torch/train/``) fed by the prefetching loader
+The reference's ``repro/launch/train.py``, through the port's engine
+(``repro_torch/train/``) fed by the prefetching loader
 (``repro_torch/data/loader.py``, the paper's I.P. in Fig. 2a):
 
   * ``--mode stacked`` (IP-D) — one replica per watershed on a leading
     axis, all updated by one step;
-  * ``--mode sequential`` — one watershed at a time, each its own state.
+  * ``--mode sequential`` — one watershed at a time, each its own state;
+  * any LM arch the port runs (``--smoke`` for its reduced variant) —
+    ``Engine.for_lm`` on the synthetic token stream
+    (``data/tokens.py::TokenSource``), AdamW with block remat as the
+    reference's ``train_lm`` sets it, bf16 activations over float32
+    params and moments, the step donated (updated in place). On the card
+    the conv1d, SSD-chunk and local-attention kernels run the forward and
+    autograd through their plain versions the backward. It prints the
+    reference's step lines, the peak device memory
+    (``torch.cuda.max_memory_allocated``) and the reference's final JSON
+    record. The audio and vision front ends are not ported (ROADMAP
+    Queue A): those archs raise.
 
 On the card each step's forward runs the Pix-Con and LSTM-step kernels
 and its backward runs autograd through their plain versions. Every
@@ -24,14 +36,17 @@ its params.
 It prints the reference's per-epoch lines and final JSON record, plus the
 device. Runs on the card unless ``--device cpu`` is given; without a card
 it raises. ``--profile-dir DIR`` writes a ``torch.profiler`` trace of
-the run to ``DIR/trace.json``. LM training is not ported yet (ROADMAP
-Queue A).
+the run to ``DIR/trace.json``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch domst
   PYTHONPATH=src python -m repro_torch.launch.train --arch domst \\
       --watersheds 2 --days 150 --epochs 1 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch domst \\
       --mode stacked --accum-steps 4 --ckpt run.npz
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --smoke --steps 3 --batch-size 4 --seq-len 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch recurrentgemma-2b --batch-size 2 --seq-len 2560 --steps 4
 """
 from __future__ import annotations
 
@@ -43,17 +58,25 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import TrainConfig, get_config
+from repro_torch.configs import (
+    TrainConfig, get_config, list_configs, smoke_variant,
+)
+from repro_torch.convert import flatten
 from repro_torch.core import domst
 from repro_torch.data.loader import ShardedLoader
 from repro_torch.data.pipeline import (
     InputPipeline, StackedSource, WatershedSource, make_domst_windows,
     stacked_test_batch, train_split, train_test_split,
 )
+from repro_torch.data.tokens import TokenSource, synthetic_token_batch
 from repro_torch.device import device_name
 from repro_torch.metrics import Meter
+from repro_torch.models import transformer as tfm
 from repro_torch.obs import MetricRegistry, profiler
 from repro_torch.train import Engine
+
+# the held-out batch's seed offset, the reference's
+EVAL_SEED_OFFSET = 2**31
 
 
 def _timed(loader, registry: MetricRegistry):
@@ -181,15 +204,92 @@ def train_domst(args) -> dict:
     return result
 
 
-def main(argv=None) -> dict:
+def train_lm(args):
+    """LM training as the reference's ``train_lm``; returns (the printed
+    record, the engine, the final state): the live state is the
+    train-to-serve hand-off (``InferenceEngine.from_train_state``)."""
+    if args.arch not in list_configs():
+        raise NotImplementedError(
+            f"--arch {args.arch}: not ported yet (ROADMAP Queue A: the "
+            f"front ends); the port trains {', '.join(list_configs())}")
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
+                     warmup_steps=max(args.steps // 10, 1), remat="block",
+                     grad_accum=args.accum_steps, seed=args.seed)
+    engine = Engine.for_lm(cfg, tc, device=args.device)
+    dev = engine.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = tfm.init(cfg, torch.Generator(device=dev).manual_seed(args.seed))
+    n_params = sum(t.numel() for t in flatten(params).values())
+    print(f"{cfg.name}: {n_params / 1e6:.1f}M params", flush=True)
+    state = engine.init_state(params)
+    del params
+    start = 0
+    if args.resume:
+        state = engine.restore(args.resume, state)
+        start = int(state.step)
+        # continue, don't replay: the loader resumes the token stream at
+        # the restored step and the schedule horizon extends past it
+        tc = dataclasses.replace(tc, total_steps=start + args.steps)
+        engine = Engine.for_lm(cfg, tc, device=dev)
+
+    source = TokenSource(cfg, args.batch_size, args.seq_len, seed=args.seed)
+    if args.eval_interval:
+        held_out = engine.place_batch(synthetic_token_batch(
+            cfg, args.batch_size, args.seq_len,
+            seed=args.seed + EVAL_SEED_OFFSET))
+    loader = ShardedLoader(source, engine, prefetch=args.prefetch,
+                           start_step=start, num_steps=args.steps)
+    registry = MetricRegistry()
+    meter = Meter(registry=registry, prefix="train.")
+    losses = []
+    for batch in _timed(loader, registry):
+        state, m = engine.step(state, batch)
+        losses.append(float(m["loss"]))
+        i = loader.cursor - start - 1
+        if args.eval_interval and loader.cursor % args.eval_interval == 0:
+            ev = engine.eval_step(state, held_out)
+            print(f"step {loader.cursor} eval loss "
+                  f"{float(ev['loss']):.4f}", flush=True)
+        if i % max(args.steps // 10, 1) == 0:
+            print(f"step {i:5d} loss {losses[-1]:.4f} "
+                  f"({meter.elapsed():.1f}s)", flush=True)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    print("peak memory " + (f"{peak / 1e9:.3f} GB (max_memory_allocated)"
+                            if peak is not None else "not measured (cpu)"),
+          flush=True)
+    result = {"arch": cfg.name, "first_loss": losses[0],
+              "last_loss": losses[-1], "steps": int(state.step),
+              "prefetch": args.prefetch, "wall_s": meter.elapsed(),
+              **_train_metrics(registry), "params": n_params,
+              "tokens_per_step": args.batch_size * args.seq_len,
+              "peak_memory_bytes": peak, "device": device_name(dev)}
+    print(json.dumps(result))
+    if args.metrics_out:
+        registry.dump_jsonl(args.metrics_out)
+    if args.ckpt:
+        engine.save(args.ckpt, state)
+        print("saved", args.ckpt)
+    return result, engine, state
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="an LM arch's reduced variant (configs/smoke.py)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
     ap.add_argument("--steps", type=int, default=100,
                     help="the learning-rate schedule's horizon in steps")
     ap.add_argument("--epochs", type=int, default=5)
     ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="LM tokens a sequence")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--watersheds", type=int, default=23)
@@ -217,13 +317,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--profile-dir", default="",
                     help="open a torch.profiler window around the run and "
                          "write its trace to DIR/trace.json")
-    args = ap.parse_args(argv)
-    if not args.arch.startswith("domst"):
-        raise NotImplementedError(
-            f"--arch {args.arch}: LM training is not ported yet (ROADMAP "
-            "Queue A); the port trains the Dom-ST variants")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Train as the arguments say; returns the printed record."""
+    args = parse_args(argv)
     with profiler.profile(args.profile_dir):
-        return train_domst(args)
+        if args.arch.startswith("domst"):
+            return train_domst(args)
+        return train_lm(args)[0]
 
 
 if __name__ == "__main__":

@@ -7,9 +7,13 @@ Layouts are BSHD: q (B, S, Hq, D); k/v (B, S, Hkv, D).
 * ``flash_attention`` — whole-prompt (prefill) attention of a global
   layer, an online softmax over KV blocks in plain torch ops, as the
   reference's is plain JAX;
-* the whole-prompt attention of a local (sliding-window) layer goes
-  through ``kernels/local_attn``, where the reference computes
-  ``local_attention`` inline in plain JAX;
+* ``blockq_attention`` — the training attention of a global layer: each
+  Q block takes a full softmax over all of K, in plain torch ops, as the
+  reference's is plain JAX, each block checkpointed so that its scores are
+  recomputed in the backward;
+* the whole-sequence attention of a local (sliding-window) layer, in
+  prefill and in training, goes through ``kernels/local_attn``, where the
+  reference computes ``local_attention`` inline in plain JAX;
 * ``paged_attend`` and the three paged paths (decode, multi-token verify,
   chunked prefill) — every attention over the page pool goes through
   ``kernels/paged_attn`` (the Hopper kernel on the card, its plain
@@ -133,16 +137,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Block-Q attention (global) for training
+# ---------------------------------------------------------------------------
+def _blockq_scores(qb: torch.Tensor, q_pos: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, causal: bool, softcap_val: float,
+                   scale: float) -> torch.Tensor:
+    """One Q block (B,bq,Hkv,G,D) against all of K: (B,Hkv,G,bq,D)."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qb, k).float() * scale
+    if softcap_val:
+        s = softcap_val * torch.tanh(s / softcap_val)
+    if causal:
+        k_pos = torch.arange(k.shape[1], device=k.device)
+        s = torch.where(k_pos[None, :] <= q_pos[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype), v)
+
+
+def blockq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True, softcap_val: float = 0.0,
+                     block_q: int = 512) -> torch.Tensor:
+    """Training attention of a global layer. q (B,Sq,Hq,D), k/v
+    (B,Sk,Hkv,D) -> (B,Sq,Hq,D). Each block of ``block_q`` queries takes
+    a full softmax over all of K (scores in q's dtype, then float32 times
+    ``1/sqrt(D)``, the softcap, the causal mask; ``p`` in v's dtype in the
+    P.V product), each block checkpointed, so that the backward
+    recomputes one block's scores at a time: the reference's
+    ``jax.checkpoint`` per block."""
+    from torch.utils.checkpoint import checkpoint
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    block_q = min(block_q, Sq)
+    qr = q.reshape(B, Sq, Hkv, G, D)
+    pos = torch.arange(Sq, device=q.device)
+    out = torch.cat([checkpoint(_blockq_scores, qr[:, i:i + block_q],
+                                pos[i:i + block_q], k, v, causal, softcap_val,
+                                scale, use_reentrant=False,
+                                preserve_rng_state=False)
+                     for i in range(0, Sq, block_q)], dim=3)    # (B,Hkv,G,Sq,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
 def attention_block(params, cfg: ModelConfig, x: torch.Tensor, *, kind: str,
-                    local: Callable = local_attention_fused):
-    """Whole-prompt attention layer for prefill: x (B,S,d) ->
-    (out (B,S,d), (k, v)). A global layer runs ``flash_attention``; a
-    local layer runs ``local``, the sliding-window kernel's wrapper
-    (its plain version is passed only to check the kernel's run on the
-    card), with ``window=cfg.window`` and ``softcap=cfg.attn_softcap``
-    (gemma2's 50, applied to the float32 scores before the mask, as the
-    reference's ``local_attention`` does). The training path
-    (``blockq_attention``) comes with a later slice."""
+                    local: Callable = local_attention_fused,
+                    return_kv: bool = False):
+    """Whole-sequence attention layer: x (B,S,d) -> (out (B,S,d), (k, v))
+    with ``return_kv`` (prefill), else out alone (training). A global
+    layer runs ``flash_attention`` for prefill and ``blockq_attention``
+    for training, as the reference's does; a local layer runs ``local``
+    in both, the sliding-window kernel's wrapper (its plain version is
+    passed only to check the kernel's run on the card), with
+    ``window=cfg.window`` and ``softcap=cfg.attn_softcap`` (gemma2's 50,
+    applied to the float32 scores before the mask, as the reference's
+    ``local_attention`` does)."""
     if kind not in ("global", "local"):
         raise ValueError(kind)
     B, S, _ = x.shape
@@ -152,10 +201,14 @@ def attention_block(params, cfg: ModelConfig, x: torch.Tensor, *, kind: str,
         o = local(q.contiguous(), k.contiguous(), v.contiguous(),
                   window=cfg.window, causal=cfg.causal,
                   softcap=float(cfg.attn_softcap))
-    else:
+    elif return_kv:
         o = flash_attention(q, k, v, causal=cfg.causal,
                             softcap_val=cfg.attn_softcap)
-    return out_project(params, o), (k, v)
+    else:
+        o = blockq_attention(q, k, v, causal=cfg.causal,
+                             softcap_val=cfg.attn_softcap)
+    out = out_project(params, o)
+    return (out, (k, v)) if return_kv else out
 
 
 # ---------------------------------------------------------------------------

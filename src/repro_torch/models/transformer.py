@@ -1,5 +1,6 @@
-"""The decoder stack: parameters, whole-prompt prefill and the paged
-incremental paths (decode, speculative verify, chunked prefill).
+"""The decoder stack: parameters, the training forward and loss,
+whole-prompt prefill and the paged incremental paths (decode,
+speculative verify, chunked prefill).
 
 The port of the dense, mixture-of-experts, recurrent (RG-LRU) and SSM
 (Mamba-2) parts of ``repro/models/transformer.py``.
@@ -18,6 +19,15 @@ chunk starts the prompt), and a speculative verify not at all — it
 returns the state after every proposed token, stacked on a leading T
 axis, and ``serve.state.select_verified`` keeps each slot's snapshot at
 its last accepted token.
+
+The training forward (``forward``, ``lm_loss``) collects no cache: a
+global layer runs ``attention.blockq_attention``, a local layer the
+local-attention kernel, and ``run_stack`` sums the MoE layers' load
+balance loss and, with ``remat``, checkpoints each repetition of the
+layer pattern (not the prefix or the suffix), as the reference
+checkpoints its scanned ``blocks`` body. On the card the kernels' wrappers
+take their autograd Functions there: each kernel runs the forward and
+autograd through its plain version the backward.
 
 A MoE layer's FFN is ``models/moe.py``'s ``moe_block`` (deepseek-moe's
 first ``first_k_dense`` layers keep a dense FFN); QK norm is in
@@ -270,45 +280,56 @@ def embed_inputs(params: Params, cfg: ModelConfig,
 # Layer application
 # ---------------------------------------------------------------------------
 def _apply_ffn(lp, cfg: ModelConfig, x: torch.Tensor, ffn: str):
+    """(x + FFN(x), the MoE load-balance loss or None)."""
     if ffn == "none":
-        return x
+        return x, None
     h = apply_norm(lp["norm2"], cfg.norm, x)
+    aux = None
     if ffn == "dense":
         out = mlp_mod.mlp_block(lp["ffn"], cfg, h)
     else:
-        out, _ = moe_mod.moe_block(lp["ffn"], cfg, h)
+        out, aux = moe_mod.moe_block(lp["ffn"], cfg, h)
     if cfg.post_norms:
         out = apply_norm(lp["post_norm2"], cfg.norm, out)
-    return x + out
+    return x + out, aux
 
 
 def apply_layer(lp, cfg: ModelConfig, x: torch.Tensor, kind: LayerKind,
-                ffn: str, *, max_len: int, ops: KernelOps = KERNELS):
-    """Full-sequence layer for prefill, collecting its cache entry: the
-    reference's ``collect_cache=True``. Returns (x, cache_entry): a KV
-    ring for attention, the final state for recurrent and SSM layers.
-    (The training forward is not ported yet.)"""
+                ffn: str, *, collect_cache: bool = False, max_len: int = 0,
+                ops: KernelOps = KERNELS):
+    """Full-sequence layer. Returns (x, MoE aux or None, cache entry or
+    None). With ``collect_cache`` (prefill) the cache entry is a KV ring
+    of ``max_len`` for attention, the final state for recurrent and SSM
+    layers; without it (training) a global layer attends by
+    ``blockq_attention``."""
     h = apply_norm(lp["norm1"], cfg.norm, x)
+    cache_entry = None
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
-        out, (k, v) = attn_mod.attention_block(lp["attn"], cfg, h, kind=kind,
-                                               local=ops.local_attn)
-        empty = attn_mod.init_kv_cache(
-            x.shape[0], attn_mod.cache_length(cfg, kind, max_len),
-            cfg.num_kv_heads, cfg.resolved_head_dim(), dtype=x.dtype,
-            device=x.device)
-        cache_entry = attn_mod.fill_cache_from_prefill(empty, k, v)
+        got = attn_mod.attention_block(lp["attn"], cfg, h, kind=kind,
+                                       local=ops.local_attn,
+                                       return_kv=collect_cache)
+        if collect_cache:
+            out, (k, v) = got
+            empty = attn_mod.init_kv_cache(
+                x.shape[0], attn_mod.cache_length(cfg, kind, max_len),
+                cfg.num_kv_heads, cfg.resolved_head_dim(), dtype=x.dtype,
+                device=x.device)
+            cache_entry = attn_mod.fill_cache_from_prefill(empty, k, v)
+        else:
+            out = got
     elif kind == RECURRENT:
-        out, cache_entry = rglru_mod.rglru_block(lp["rec"], cfg, h,
-                                                 conv=ops.conv1d)
+        out, state = rglru_mod.rglru_block(lp["rec"], cfg, h, conv=ops.conv1d)
     elif kind == SSM:
-        out, cache_entry = ssm_mod.ssm_block(lp["ssm"], cfg, h,
-                                             conv=ops.conv1d,
-                                             ssd=ops.ssd_chunk)
+        out, state = ssm_mod.ssm_block(lp["ssm"], cfg, h, conv=ops.conv1d,
+                                       ssd=ops.ssd_chunk)
     else:
         raise ValueError(kind)
+    if collect_cache and kind in (RECURRENT, SSM):
+        cache_entry = state
     if cfg.post_norms:
         out = apply_norm(lp["post_norm1"], cfg.norm, out)
-    return _apply_ffn(lp, cfg, x + out, ffn), cache_entry
+    x, aux = _apply_ffn(lp, cfg, x + out, ffn)
+    return x, aux, cache_entry
 
 
 def _apply_layer_step(lp, cfg: ModelConfig, x: torch.Tensor,
@@ -320,17 +341,100 @@ def _apply_layer_step(lp, cfg: ModelConfig, x: torch.Tensor,
     out, new_entry = mixer_fn(lp, kind, h)
     if cfg.post_norms:
         out = apply_norm(lp["post_norm1"], cfg.norm, out)
-    return _apply_ffn(lp, cfg, x + out, ffn), new_entry
+    return _apply_ffn(lp, cfg, x + out, ffn)[0], new_entry
 
 
-def run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
-              max_len: int, ops: KernelOps = KERNELS):
+def run_prefill_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                      max_len: int, ops: KernelOps = KERNELS):
     """x (B,S,d) -> (final-normed x, per-layer caches of ``max_len``)."""
     caches = []
     for lp, (kind, ffn) in zip(params["layers"], layer_plan(cfg)):
-        x, c = apply_layer(lp, cfg, x, kind, ffn, max_len=max_len, ops=ops)
+        x, _, c = apply_layer(lp, cfg, x, kind, ffn, collect_cache=True,
+                              max_len=max_len, ops=ops)
         caches.append(c)
     return apply_norm(params["final_norm"], cfg.norm, x), caches
+
+
+def run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
+              remat: bool = False, ops: KernelOps = KERNELS):
+    """The training stack: x (B,S,d) -> (final-normed x, the MoE layers'
+    summed load-balance loss, float32). With ``remat`` each repetition of
+    the layer pattern runs under ``torch.utils.checkpoint``
+    (non-reentrant): its activations are recomputed in the backward,
+    kernels included; the prefix and the suffix keep theirs."""
+    from torch.utils.checkpoint import checkpoint
+    prefix, pat, n_rep, _ = stack_plan(cfg)
+    plan = layer_plan(cfg)
+    layers = params["layers"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(x, aux, lo, hi):
+        for lp, (kind, ffn) in zip(layers[lo:hi], plan[lo:hi]):
+            x, a, _ = apply_layer(lp, cfg, x, kind, ffn, ops=ops)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    lo = len(prefix)
+    x, aux = run(x, aux, 0, lo)
+    for _ in range(n_rep):
+        hi = lo + len(pat)
+        x, aux = (checkpoint(run, x, aux, lo, hi, use_reentrant=False,
+                             preserve_rng_state=False)
+                  if remat else run(x, aux, lo, hi))
+        lo = hi
+    x, aux = run(x, aux, lo, len(layers))
+    return apply_norm(params["final_norm"], cfg.norm, x), aux
+
+
+def forward(params: Params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
+            *, dtype=torch.bfloat16, remat: bool = False,
+            ops: KernelOps = KERNELS):
+    """Training forward: (final hidden states (B,S,d), MoE aux)."""
+    x = embed_inputs(params, cfg, inputs, dtype)
+    return run_stack(params, cfg, x, remat=remat, ops=ops)
+
+
+def _chunk_nll(embed_p, cfg: ModelConfig, xc: torch.Tensor, tc: torch.Tensor,
+               mc: torch.Tensor):
+    """(summed masked NLL, summed mask) of one sequence chunk, float32."""
+    logits = unembed(embed_p, xc, tie=cfg.tie_embeddings,
+                     cap=cfg.logit_softcap, real_vocab=cfg.vocab_size)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    return ((logz - gold) * mc).sum(), mc.sum()
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            *, dtype=torch.bfloat16, remat: bool = False,
+            loss_chunk: int = 512, ops: KernelOps = KERNELS):
+    """Token cross-entropy of ``batch`` (``tokens``, ``targets`` (B,S),
+    optional ``loss_mask``), as the reference's: the logits in float32
+    over ``loss_chunk``-token pieces of the sequence, each piece
+    checkpointed (its (B, chunk, V) logits are recomputed in the backward,
+    never held across the loss), plus
+    ``aux_loss_coef`` times the MoE load-balance loss. Returns (loss,
+    {"ce", "aux"})."""
+    from torch.utils.checkpoint import checkpoint
+    x, aux = forward(params, cfg, batch, dtype=dtype, remat=remat, ops=ops)
+    if cfg.frontend == "vision_stub":
+        raise NotImplementedError(f"{cfg.name}: vision_stub front end")
+    targets = batch["targets"]
+    B, S, _ = x.shape
+    mask = batch.get("loss_mask")
+    m = (torch.ones((B, S), dtype=torch.float32, device=x.device)
+         if mask is None else mask.float())
+    chunk = min(loss_chunk, S)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, chunk):
+        nll, n = checkpoint(_chunk_nll, params["embed"], cfg, x[:, i:i + chunk],
+                            targets[:, i:i + chunk], m[:, i:i + chunk],
+                            use_reentrant=False, preserve_rng_state=False)
+        tot, cnt = tot + nll, cnt + n
+    ce = tot / torch.clamp(cnt, min=1.0)
+    loss = ce + cfg.moe.aux_loss_coef * aux if cfg.moe is not None else ce
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +444,7 @@ def prefill(params: Params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
             max_len: int, *, dtype=torch.bfloat16, ops: KernelOps = KERNELS):
     """Full-context forward; returns (last-token logits (B,V), caches)."""
     x = embed_inputs(params, cfg, inputs, dtype)
-    x, caches = run_stack(params, cfg, x, max_len=max_len, ops=ops)
+    x, caches = run_prefill_stack(params, cfg, x, max_len=max_len, ops=ops)
     logits = unembed(params["embed"], x[:, -1:], tie=cfg.tie_embeddings,
                      cap=cfg.logit_softcap, real_vocab=cfg.vocab_size)[:, 0]
     return logits, caches

@@ -9,7 +9,14 @@ but R, and the step counter is (R,). The learning rate and the bias
 corrections are computed in float32 from the step, as the reference
 computes them (``step.astype(float32)``). The update is elementwise, so
 it does not care that the LSTM leaves are in the port's gate-split
-layout. It returns new tensors (nothing is updated in place).
+layout.
+
+The gradients are always clipped in their own tensors. ``in_place`` is
+the port's form of the reference's donated step: the params and the
+moments are updated in their own tensors too, and the caller must not
+reuse the old state. Without it the update runs the same operations on
+copies of them, so both give the same bits and the old state stays
+valid.
 """
 from __future__ import annotations
 
@@ -34,24 +41,40 @@ def _per_replica(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape + (1,) * (like.dim() - 1))
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float
-                        ) -> Tuple[Tree, torch.Tensor]:
-    """Scale each replica's gradients so their global norm is at most
-    ``max_norm``. Returns (clipped grads, the norms before clipping (R,))."""
+def global_norm(grads: Tree) -> torch.Tensor:
+    """Each replica's global gradient norm (R,), summed over every axis
+    but R."""
     sq = None
     for g in grads.values():
         s = torch.sum(torch.square(g.float()), dim=tuple(range(1, g.dim())))
         sq = s if sq is None else sq + s
-    gnorm = torch.sqrt(sq)
-    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    return torch.sqrt(sq)
+
+
+def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+
+
+def clip_by_global_norm(grads: Tree, max_norm: float
+                        ) -> Tuple[Tree, torch.Tensor]:
+    """Scale each replica's gradients so their global norm is at most
+    ``max_norm``. Returns (clipped grads, the norms before clipping (R,))."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, max_norm)
     return {k: (g.float() * _per_replica(scale, g)).to(g.dtype)
             for k, g in grads.items()}, gnorm
 
 
 def _clip(grads: Tree, tc: TrainConfig) -> Tuple[Tree, torch.Tensor]:
+    """``clip_by_global_norm`` in the gradients' own tensors (the update's
+    gradients are its own, fresh from the backward) and the norms before
+    clipping."""
+    gnorm = global_norm(grads)
     if tc.grad_clip:
-        return clip_by_global_norm(grads, tc.grad_clip)
-    return grads, clip_by_global_norm(grads, 1e30)[1]
+        scale = _clip_scale(gnorm, tc.grad_clip)
+        for g in grads.values():
+            g.mul_(_per_replica(scale, g))
+    return grads, gnorm
 
 
 def _zeros(params: Tree) -> Tree:
@@ -68,9 +91,17 @@ def adamw_init(params: Tree) -> OptState:
     return OptState(step=_steps(params), mu=_zeros(params), nu=_zeros(params))
 
 
+def _own(tree: Tree, in_place: bool) -> Tree:
+    """``tree`` itself to update in place, else a copy of each leaf."""
+    return tree if in_place else {k: v.clone() for k, v in tree.items()}
+
+
 @torch.no_grad()
 def adamw_update(params: Tree, grads: Tree, state: OptState,
-                 tc: TrainConfig) -> Tuple[Tree, OptState, Dict]:
+                 tc: TrainConfig, in_place: bool = False
+                 ) -> Tuple[Tree, OptState, Dict]:
+    """One AdamW step on float32 params and moments: each leaf's moments,
+    then its param, with at most three leaf-sized temporaries alive."""
     grads, gnorm = _clip(grads, tc)
     step = state.step + 1
     lr = make_schedule(tc)(step)
@@ -78,18 +109,19 @@ def adamw_update(params: Tree, grads: Tree, state: OptState,
     stepf = step.to(torch.float32)
     c1 = 1 - torch.pow(b1, stepf)
     c2 = 1 - torch.pow(b2, stepf)
-    new_p, new_mu, new_nu = {}, {}, {}
-    for k, p in params.items():
+    new_p, new_mu, new_nu = (_own(t, in_place)
+                             for t in (params, state.mu, state.nu))
+    for k, p in new_p.items():
         g = grads[k].float()
-        m = b1 * state.mu[k] + (1 - b1) * g
-        v = b2 * state.nu[k] + (1 - b2) * torch.square(g)
-        mhat = m / _per_replica(c1, m)
+        m = new_mu[k].mul_(b1).add_(g * (1 - b1))
+        v = new_nu[k].mul_(b2).add_(torch.square(g).mul_(1 - b2))
+        del g
+        delta = m / _per_replica(c1, m)
         vhat = v / _per_replica(c2, v)
-        delta = mhat / (torch.sqrt(vhat) + eps)
-        p32 = p.float()
-        new_p[k] = (p32 - _per_replica(lr, p) * (delta + tc.weight_decay * p32)
-                    ).to(p.dtype)
-        new_mu[k], new_nu[k] = m, v
+        delta.div_(vhat.sqrt_().add_(eps))
+        del vhat
+        delta.add_(tc.weight_decay * p).mul_(_per_replica(lr, p))
+        p.sub_(delta)
     return new_p, OptState(step=step, mu=new_mu, nu=new_nu), \
         {"lr": lr, "grad_norm": gnorm}
 
@@ -100,22 +132,26 @@ def sgd_init(params: Tree) -> OptState:
 
 @torch.no_grad()
 def sgd_update(params: Tree, grads: Tree, state: OptState, tc: TrainConfig,
-               momentum: float = 0.9) -> Tuple[Tree, OptState, Dict]:
+               momentum: float = 0.9, in_place: bool = False
+               ) -> Tuple[Tree, OptState, Dict]:
     grads, gnorm = _clip(grads, tc)
     step = state.step + 1
     lr = make_schedule(tc)(step)
-    new_p, new_mu = {}, {}
-    for k, p in params.items():
-        m = momentum * state.mu[k] + grads[k].float()
-        new_p[k] = (p.float() - _per_replica(lr, p) * m).to(p.dtype)
-        new_mu[k] = m
+    new_p, new_mu = _own(params, in_place), _own(state.mu, in_place)
+    for k, p in new_p.items():
+        m = new_mu[k].mul_(momentum).add_(grads[k].float())
+        p.sub_(_per_replica(lr, p) * m)
     return new_p, OptState(step=step, mu=new_mu, nu={}), \
         {"lr": lr, "grad_norm": gnorm}
 
 
-def make_optimizer(tc: TrainConfig):
+def make_optimizer(tc: TrainConfig, in_place: bool = False):
+    """(init, update(params, grads, state)); the update clips the
+    gradients in their own tensors, and ``in_place`` updates the params
+    and the moments in theirs."""
     if tc.optimizer == "adamw":
-        return adamw_init, lambda p, g, s: adamw_update(p, g, s, tc)
+        return adamw_init, lambda p, g, s: adamw_update(p, g, s, tc, in_place)
     if tc.optimizer == "sgd":
-        return sgd_init, lambda p, g, s: sgd_update(p, g, s, tc)
+        return sgd_init, lambda p, g, s: sgd_update(p, g, s, tc,
+                                                    in_place=in_place)
     raise ValueError(tc.optimizer)

@@ -32,8 +32,8 @@ The reference's steps are jitted and donated; the port runs them eagerly
 under ``torch.inference_mode`` and updates the state's tensors in place,
 so a hook that restores rows writes into the existing tensors. Token
 outputs come back as numpy arrays, which is where a step waits for the
-device. The contiguous (unpaged) layout and ``from_train_state`` (it
-needs the LM training engine) are not ported: ``paged`` is always True.
+device. ``from_train_state`` adopts a live LM training state. The
+contiguous (unpaged) layout is not ported: ``paged`` is always True.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a card they raise. ``ops=transformer.PLAIN``
@@ -105,6 +105,19 @@ class InferenceEngine:
             slots=self.slots, num_pages=self.num_pages,
             pages_per_slot=self.pages_per_slot, page_size=self.page_size,
             dtype=self.dtype, device=self.device)
+
+    @classmethod
+    def from_train_state(cls, train_engine, train_state, *, slots: int = 4,
+                         max_len: int = 64, dtype: torch.dtype = torch.bfloat16,
+                         **kw) -> tuple["InferenceEngine", InferenceState]:
+        """Adopt a trained state of an LM ``train.Engine`` (``for_lm``) on
+        its device: its flat params as the per-layer tree, without the
+        replica axis, cast to the serving ``dtype`` (a float32 leaf is
+        shared, not copied). The train state must not be stepped
+        afterwards: the serving state may share its tensors."""
+        eng = cls(train_engine.cfg, slots=slots, max_len=max_len,
+                  dtype=dtype, device=train_engine.device, **kw)
+        return eng, eng.init_state(train_engine.params_tree(train_state))
 
     def restore_params(self, path: str, example_params: Any) -> Any:
         """The ``params`` subtree of a TrainState .npz in the reference's

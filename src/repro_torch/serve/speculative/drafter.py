@@ -150,6 +150,15 @@ class ModelDrafter:
         d.state = d.state._replace(params=params)
         return d
 
+    @classmethod
+    def from_train_state(cls, train_engine, train_state,
+                         **kw) -> "ModelDrafter":
+        """Adopt a live trained LM state (``train.Engine.for_lm``) on the
+        train engine's device, as ``InferenceEngine.from_train_state``
+        does."""
+        return cls(train_engine.cfg, train_engine.params_tree(train_state),
+                   device=train_engine.device, **kw)
+
     # -- the drafting round ------------------------------------------------
     def _assign(self, slot: int) -> None:
         per = self.engine.pages_per_slot

@@ -1,6 +1,7 @@
 """The host side of the conv1d, LSTM-step, Pix-Con, SSD-chunk,
 local-attention and paged-attention wrappers, on the CPU: their input
-checks, the launch plans they pass to ``csrc/conv1d.cu``,
+checks, the autograd Functions of all but paged attention (the kernel's
+launch forward, autograd through the plain version backward), the launch plans they pass to ``csrc/conv1d.cu``,
 ``csrc/lstm_cell.cu``, ``csrc/ssd_chunk.cu`` and ``csrc/paged_attn.cu``
 (``plan_conv``, ``plan_lstm``, ``plan_ssd``, ``grid_of``), and the
 arguments they pack for a launch (the attention softcap as a float32
@@ -812,9 +813,9 @@ def _at(ptr, *shape):
 
 
 class _PlainLibrary:
-    """Stands in for the Pix-Con and LSTM-step libraries: each launch reads
-    its inputs at the packed pointers, computes the plain version there
-    and writes it to the packed outputs."""
+    """Stands in for the kernel libraries (float32): each launch reads its
+    inputs at the packed pointers, computes the plain version there and
+    writes it to the packed outputs."""
 
     def __init__(self):
         self.launches = 0
@@ -845,15 +846,55 @@ class _PlainLibrary:
         self.launches += 1
         return 0
 
+    def conv1d_launch(self, packed):
+        from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
+        f = struct.unpack("17q", packed)
+        B, S, C, K, flags = f[6:11]
+        tail = _at(f[1], B, K - 1, C) if f[1] else None
+        y, new = causal_conv1d_ref(_at(f[0], B, S, C), _at(f[2], K, C),
+                                   _at(f[3], C), tail=tail,
+                                   activation="silu" if flags & 1 else "none")
+        _at(f[4], B, S, C).copy_(y)
+        _at(f[5], B, K - 1, C).copy_(new)
+        self.launches += 1
+        return 0
+
+    def ssd_chunk_launch(self, packed):
+        from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+        f = struct.unpack("21q", packed)
+        BN, Q, H, N, P = f[6:11]
+        y, states = ssd_chunk_ref(
+            _at(f[0], BN, 1, Q, H, N), _at(f[1], BN, 1, Q, H, N),
+            _at(f[2], BN, 1, Q, H, P), _at(f[3], BN, 1, H, Q))
+        _at(f[4], BN, 1, Q, H, P).copy_(y)
+        _at(f[5], BN, 1, H, P, N).copy_(states)
+        self.launches += 1
+        return 0
+
+    def local_attn_launch(self, packed):
+        from repro_torch.kernels.local_attn.ref import local_attention_ref
+        f = struct.unpack("=14qf", packed)
+        B, S, Hq, Hkv, D, window, causal = f[4:11]
+        out = local_attention_ref(
+            _at(f[0], B, S, Hq, D), _at(f[1], B, S, Hkv, D),
+            _at(f[2], B, S, Hkv, D), window=window, causal=bool(causal),
+            softcap=float(f[14]))
+        _at(f[3], B, S, Hq, D).copy_(out)
+        self.launches += 1
+        return 0
+
 
 @pytest.fixture
 def plain_library(monkeypatch):
     lib = _PlainLibrary()
-    for ops in (pixcon_ops, lstm_ops):
+    for ops in (pixcon_ops, lstm_ops, conv_ops, ssd_ops, local_ops):
         monkeypatch.setattr(ops, "_lib", lambda: lib)
         monkeypatch.setattr(ops, "stream_handle", lambda dev: 0)
-    monkeypatch.setattr(lstm_ops, "sm_count", lambda dev: 132)
-    for fn in (pixcon_ops.pixcon_gate, lstm_ops.lstm_cell_fused):
+    for ops in (lstm_ops, conv_ops):
+        monkeypatch.setattr(ops, "sm_count", lambda dev: 132)
+    for fn in (pixcon_ops.pixcon_gate, lstm_ops.lstm_cell_fused,
+               conv_ops.causal_conv1d, ssd_ops.ssd_chunk_fused,
+               local_ops.local_attention_fused):
         monkeypatch.setattr(fn, "launches", fn.launches)
     return lib
 
@@ -918,6 +959,133 @@ def test_lstm_function_gradients_are_autograd_through_plain(plain_library,
         assert torch.equal(o.as_subclass(torch.Tensor).detach(), w.detach())
     for g, w in zip(grads, want):
         assert torch.equal(g, w)
+
+
+def _same_grads(fn, plain_fn, card, plain, wanted, seed):
+    """``fn`` on the card route and ``plain_fn`` on plain copies: the
+    same outputs and the same gradients, to the bit."""
+    outs, grads = _grads_through(fn, card, wanted, seed)
+    want_outs, want = _grads_through(plain_fn, plain, wanted, seed)
+    for o, w in zip(outs, want_outs):
+        assert torch.equal(o.as_subclass(torch.Tensor).detach(), w.detach())
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+    return outs
+
+
+@pytest.mark.parametrize("activation", ["none", "silu"])
+@pytest.mark.parametrize("wanted", [(0, 1, 2), (1, 2), (0, 1, 2, 3)])
+def test_conv1d_function_gradients_are_autograd_through_plain(
+        plain_library, activation, wanted):
+    """Gradients to x, w, b (and a given tail); the new tail is
+    non-differentiable."""
+    from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
+    a = _conv_inputs()
+    names = ("x", "w", "b", "tail")
+    if 3 not in wanted:
+        a["tail"] = None
+        names = names[:3]
+    card = [a[n].requires_grad_(i in wanted) for i, n in enumerate(names)]
+
+    def conv(fn):
+        def run(*t):
+            y, new = fn(*t[:3], tail=t[3] if len(t) > 3 else None,
+                        activation=activation)
+            return y, new.detach()
+        return run
+    outs = _same_grads(conv(conv_ops.causal_conv1d), conv(causal_conv1d_ref),
+                       card, [_plain(a[n], i in wanted)
+                              for i, n in enumerate(names)], wanted, seed=3)
+    assert plain_library.launches == 1
+    assert type(outs[0].grad_fn).__name__ == "CausalConv1dBackward"
+    new = conv_ops.causal_conv1d(*card[:3], activation=activation,
+                                 tail=card[3] if len(card) > 3 else None)[1]
+    assert not new.requires_grad
+
+
+@pytest.mark.parametrize("wanted", [(0, 1, 2, 3), (2, 3), (0,)])
+def test_ssd_chunk_function_gradients_are_autograd_through_plain(
+        plain_library, wanted):
+    """Gradients to Cc, Bc, xdt and dA_cs through both outputs."""
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+    B, nc, Q, H, N, P = 2, 2, 5, 3, 16, 8
+    a = {"Cc": _card(B, nc, Q, H, N), "Bc": _card(B, nc, Q, H, N, seed=1),
+         "xdt": _card(B, nc, Q, H, P, seed=2),
+         "dA_cs": torch.cumsum(-torch.rand(B, nc, H, Q), -1).contiguous()
+         .as_subclass(_OnCard)}
+    names = ("Cc", "Bc", "xdt", "dA_cs")
+    card = [a[n].requires_grad_(i in wanted) for i, n in enumerate(names)]
+    outs = _same_grads(ssd_ops.ssd_chunk_fused, ssd_chunk_ref, card,
+                       [_plain(a[n], i in wanted)
+                        for i, n in enumerate(names)], wanted, seed=4)
+    assert plain_library.launches == 1
+    assert type(outs[0].grad_fn).__name__ == "SsdChunkBackward"
+    assert outs[1].requires_grad
+
+
+@pytest.mark.parametrize("window,causal,softcap", [(4, True, 0.0),
+                                                   (3, True, 5.0),
+                                                   (4, False, 2.0)])
+@pytest.mark.parametrize("wanted", [(0, 1, 2), (2,)])
+def test_local_attn_function_gradients_are_autograd_through_plain(
+        plain_library, window, causal, softcap, wanted):
+    """Gradients to q, k and v, the band and the softcap passed through
+    (a dropped window or cap changes the gradients)."""
+    from repro_torch.kernels.local_attn.ref import local_attention_ref
+    a = {"q": _card(2, 9, 4, 64).mul(3), "k": _card(2, 9, 2, 64, seed=1),
+         "v": _card(2, 9, 2, 64, seed=2)}
+    names = ("q", "k", "v")
+    card = [a[n].requires_grad_(i in wanted) for i, n in enumerate(names)]
+    kw = dict(window=window, causal=causal, softcap=softcap)
+    outs = _same_grads(lambda *t: (local_ops.local_attention_fused(*t, **kw),),
+                       lambda *t: (local_attention_ref(*t, **kw),), card,
+                       [_plain(a[n], i in wanted)
+                        for i, n in enumerate(names)], wanted, seed=5)
+    assert plain_library.launches == 1
+    assert type(outs[0].grad_fn).__name__ == "LocalAttentionBackward"
+
+
+def test_ssd_chunk_plain_gradient_stays_finite_where_exp_overflows():
+    """A 256-token chunk's decay sums pass 88, where exp overflows float32
+    above the diagonal; the masked entries must take no part in the
+    gradient either (inf * 0 would make dA_cs's gradient NaN)."""
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+    g = torch.Generator().manual_seed(0)
+    B, nc, Q, H, N, P = 1, 1, 256, 2, 16, 8
+    dA_cs = torch.cumsum(-2.0 * torch.rand(B, nc, H, Q, generator=g), -1)
+    assert float((dA_cs[..., 0] - dA_cs[..., -1]).min()) > 100
+    ins = [torch.randn(B, nc, Q, H, N, generator=g),
+           torch.randn(B, nc, Q, H, N, generator=g),
+           torch.randn(B, nc, Q, H, P, generator=g), dA_cs]
+    ins = [t.requires_grad_() for t in ins]
+    y, states = ssd_chunk_ref(*ins)
+    grads = torch.autograd.grad(y.sum() + states.sum(), ins)
+    assert all(bool(torch.isfinite(t).all()) for t in (y, states, *grads))
+
+
+def test_serving_route_launches_the_new_kernels_directly(plain_library,
+                                                         monkeypatch):
+    """Under ``inference_mode`` (the serving engine's steps) the conv1d,
+    SSD-chunk and local-attention wrappers launch without their autograd
+    Functions, even on weights that require a gradient."""
+    def no_function(*a):
+        raise AssertionError("an autograd Function was entered")
+    for cls in (conv_ops.CausalConv1d, ssd_ops.SsdChunk,
+                local_ops.LocalAttention):
+        monkeypatch.setattr(cls, "apply", no_function)
+    c = _conv_inputs()
+    c["w"].requires_grad_()
+    q = _card(1, 6, 2, 64).requires_grad_()
+    k, v = _card(1, 6, 2, 64, seed=1), _card(1, 6, 2, 64, seed=2)
+    x = _card(1, 1, 4, 3, 8, seed=3).requires_grad_()
+    with torch.inference_mode():
+        y, _ = conv_ops.causal_conv1d(**c)
+        o = local_ops.local_attention_fused(q, k, v, window=3)
+        yd, st = ssd_ops.ssd_chunk_fused(
+            _card(1, 1, 4, 3, 16), _card(1, 1, 4, 3, 16, seed=4), x,
+            torch.zeros(1, 1, 3, 4).as_subclass(_OnCard))
+    assert plain_library.launches == 3
+    assert all(not t.requires_grad for t in (y, o, yd, st))
 
 
 @pytest.mark.parametrize("mode", ["inference_mode", "no_grad", "no_input_grad"])

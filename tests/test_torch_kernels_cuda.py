@@ -13,9 +13,10 @@ gemma2's softcap) in bf16: atol 2e-2, one bf16 ulp at
 |out| < 4, since a score summed in another order can round through bf16
 to the neighbouring value. The SSD chunk's bf16 y: one bf16 ulp at every
 magnitude (``BF16_ULP``), since its outputs reach |y| ~ 140. Gradients
-through the Pix-Con and LSTM autograd Functions (kernel forward, plain
-backward): within 1e-4 of each leaf's largest |grad| (``GRAD_REL``), at
-the training shapes.
+through the Pix-Con, LSTM, conv1d, SSD-chunk and local-attention
+autograd Functions (kernel forward, plain backward), and through the LM
+loss at full width and reduced depth: within 1e-4 of each leaf's largest
+|grad| (``GRAD_REL``), at the training shapes.
 """
 import pytest
 
@@ -795,3 +796,135 @@ def test_domst_gradients_through_kernels_match_plain(dev, R, B):
     for k in params:
         assert grads[0][k] is not None, k
         _grad_close(k, grads[0][k], grads[1][k])
+
+
+def _function_grads(fn, plain, inputs, kw, up_seed, n_diff=1):
+    """The outputs of ``fn`` and of the plain version on ``inputs``, and
+    the gradients of a random linear function of their first ``n_diff``
+    outputs (the differentiable ones) by input name, through the kernel's
+    Function and through the plain version; the backward launches no
+    kernel. The backward recomputes the plain version, so the gradients
+    agree whatever the forward writes: they check the Function's wiring,
+    and the outputs check the kernel."""
+    grads, outputs = {}, {}
+    for f in (fn, plain):
+        leaves = {k: v.clone().requires_grad_() for k, v in inputs.items()}
+        before = fn.launches
+        outs = f(**leaves, **kw)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        g = torch.Generator().manual_seed(up_seed)
+        loss = sum((o.float() * torch.randn(o.shape, generator=g).to(o.device)
+                    ).sum() for o in outs[:n_diff])
+        launched = fn.launches - before
+        assert launched == (1 if f is fn else 0)
+        loss.backward()
+        assert fn.launches - before == launched          # backward: none
+        grads[f] = {k: v.grad for k, v in leaves.items()}
+        outputs[f] = [o.detach() for o in outs]
+    return outputs[fn], outputs[plain], grads[fn], grads[plain]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,C,act", [(2, 2560, 2560, "none"),
+                                       (8, 1024, 1792, "silu")])
+def test_conv1d_function_backward_matches_plain(dev, B, S, C, act, dtype):
+    """recurrentgemma-2b's and mamba2-130m's training layers: the output
+    within 1e-5 in float32 and 2e-2 in bf16, the new tail to the bit, and
+    gradients to x, w and b (the new tail is non-differentiable)."""
+    from repro_torch.kernels.conv1d import ops
+    from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
+    g = torch.Generator().manual_seed(B + S)
+    a = dict(x=_rn(g, dev, B, S, C).to(dtype),
+             w=_rn(g, dev, 4, C, s=0.5).to(dtype),
+             b=_rn(g, dev, C, s=0.1).to(dtype))
+    (y, tail), (ref_y, ref_tail), got, want = _function_grads(
+        ops.causal_conv1d, causal_conv1d_ref, a, {"activation": act},
+        up_seed=1)
+    atol = ATOL if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), ref_y.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(tail, ref_tail, atol=0, rtol=0)
+    for k in a:
+        _grad_close(k, got[k].float(), want[k].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_function_backward_matches_plain(dev, dtype):
+    """mamba2-130m's training layer (B=8, four 256-token chunks): y within
+    1e-5 in float32 and one bf16 ulp in bf16, the float32 states within
+    1e-5, and gradients to Cc, Bc, xdt and dA_cs through both outputs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_chunk import ops
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+    B, nc, Q, H, N, P = 8, 4, 256, 24, 128, 64
+    g = torch.Generator().manual_seed(11)
+    dt = F.softplus(_rn(g, dev, B, nc, Q, H))
+    A = -torch.exp(torch.rand(H, generator=g) * 2 - 1).to(dev)
+    a = dict(Cc=F.silu(_rn(g, dev, B, nc, Q, H, N)).to(dtype),
+             Bc=F.silu(_rn(g, dev, B, nc, Q, H, N)).to(dtype),
+             xdt=(_rn(g, dev, B, nc, Q, H, P) * dt[..., None]).to(dtype),
+             dA_cs=torch.cumsum((dt * A).permute(0, 1, 3, 2), -1).contiguous())
+    (y, st), (ref_y, ref_st), got, want = _function_grads(
+        ops.ssd_chunk_fused, ssd_chunk_ref, a, {}, up_seed=2, n_diff=2)
+    tol = BF16_ULP if dtype == torch.bfloat16 else dict(atol=ATOL, rtol=0)
+    torch.testing.assert_close(y.float(), ref_y.float(), **tol)
+    torch.testing.assert_close(st, ref_st, atol=ATOL, rtol=0)
+    for k in a:
+        _grad_close(k, got[k].float(), want[k].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,window,cap", [
+    (2, 2560, 10, 1, 2048, 0.0),         # recurrentgemma-2b's training layer
+    (1, 4608, 8, 4, 4096, 50.0)])        # gemma2-2b's, with its softcap
+def test_local_attn_function_backward_matches_plain(dev, B, S, Hq, Hkv,
+                                                    window, cap, dtype):
+    """The output within 1e-5 in float32 and 2e-2 in bf16, and gradients
+    to q, k and v; the band and the softcap pass through."""
+    from repro_torch.kernels.local_attn import ops
+    from repro_torch.kernels.local_attn.ref import local_attention_ref
+    g = torch.Generator().manual_seed(S + Hq)
+    a = dict(q=_rn(g, dev, B, S, Hq, 256, s=2.0).to(dtype),
+             k=_rn(g, dev, B, S, Hkv, 256).to(dtype),
+             v=_rn(g, dev, B, S, Hkv, 256, s=0.5).to(dtype))
+    (out,), (ref,), got, want = _function_grads(
+        ops.local_attention_fused, local_attention_ref, a,
+        dict(window=window, softcap=cap), up_seed=3)
+    atol = ATOL if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    for k in a:
+        _grad_close(k, got[k].float(), want[k].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers,S", [("recurrentgemma-2b", 3, 2560),
+                                           ("mamba2-130m", 2, 1024)])
+def test_lm_gradients_through_kernels_match_plain(dev, arch, layers, S):
+    """``lm_loss`` at full width and reduced depth, float32, with block
+    remat: every leaf gets a finite, non-zero gradient through the
+    kernels' Functions, within ``GRAD_REL`` of autograd through
+    ``transformer.PLAIN``; the losses within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import flatten, unflatten
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(arch).replace(num_layers=layers)
+    params = tfm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             synthetic_token_batch(cfg, 1, S, seed=0).items()}
+    losses, grads = [], []
+    for ops in (tfm.KERNELS, tfm.PLAIN):
+        leaves = {k: v.clone().requires_grad_()
+                  for k, v in flatten(params).items()}
+        loss, _ = tfm.lm_loss(unflatten(leaves, tfm.model_params(
+            cfg, lambda *a: None)), cfg, batch, dtype=torch.float32,
+            remat=True, ops=ops)
+        losses.append(float(loss.detach()))
+        grads.append(torch.autograd.grad(loss, list(leaves.values())))
+        names = list(leaves)
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1]), losses
+    for k, a, b in zip(names, *grads):
+        assert bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0, k
+        _grad_close(k, a, b)

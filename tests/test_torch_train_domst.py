@@ -173,7 +173,8 @@ def test_stacked_step_isolates_watersheds():
     """Replica w's params depend only on watershed w's data."""
     _, cfg = _cfgs()
     _, tc = _tc()
-    eng = Engine.for_domst(cfg, tc, stacked=True, device="cpu")
+    # both steps start from ``params``: a donating engine would update them
+    eng = Engine.for_domst(cfg, tc, stacked=True, donate=False, device="cpu")
     params = domst.init(cfg, torch.Generator().manual_seed(0), 2)
     one = _batch(8, cfg.domst)
     b1 = eng.place_batch(_stack([one, one]))
@@ -430,8 +431,13 @@ def test_train_cli_sequential_mode_and_its_refusals(capsys):
     with pytest.raises(SystemExit, match="not supported with --mode sequential"):
         ttrain.main(["--arch", "domst", "--mode", "sequential", "--device",
                      "cpu", "--ckpt", "x.npz"])
+    # a front end is not ported; an LM without one trains
     with pytest.raises(NotImplementedError, match="Queue A"):
-        ttrain.main(["--arch", "qwen2-1.5b", "--device", "cpu"])
+        ttrain.main(["--arch", "hubert-xlarge", "--device", "cpu"])
+    lm = ttrain.main(["--arch", "qwen2-1.5b", "--smoke", "--steps", "1",
+                      "--batch-size", "2", "--seq-len", "8", "--device",
+                      "cpu"])
+    assert lm["steps"] == 1 and np.isfinite(lm["first_loss"])
 
 
 def test_train_cli_resume_continues_the_run(tmp_path, capsys):
