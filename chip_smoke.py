@@ -28,8 +28,9 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    (decode, verify and a 128-token prefill chunk of qwen2-1.5b and of
    recurrentgemma-2b's local layers, gemma2-2b's decode with its softcap
    of 50 on a local and a global layer, llama3.2-3b's (G=3) and olmo-1b's
-   (G=1) decode, qwen3-moe-30b-a3b's decode and verify (G=8) and
-   deepseek-moe-16b's decode (G=1 on 16 KV heads), plus small shapes with
+   (G=1) decode, qwen3-moe-30b-a3b's decode and verify (G=8),
+   deepseek-moe-16b's decode (G=1 on 16 KV heads) and internvl2-2b's
+   decode and verify (G=2, 50-page rows), plus small shapes with
    a window, a softcap, unassigned pages and an empty row),
    the causal conv1d (mamba2-130m's and recurrentgemma-2b's prefill and
    step shapes, C not a multiple of 128 or of the 8-channel vector, S=1
@@ -236,12 +237,34 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    depth (recurrentgemma one (R, R, L) repetition, mamba2 two layers) and
    float32, the loss within 1e-5 and every gradient leaf within 1e-4 of
    its scale, kernels against ``transformer.PLAIN``;
-13. one JSON line listing every ported kernel with its error, times, bound
+13. the front ends and the contribution gate (``frontend_main_path``):
+   internvl2-2b at full width and depth (24 layers, d 2,048, 16 heads on
+   8, vocab 92,553; 1.9 B params in bf16) served on one wave of four
+   requests, each an image of 256 patch embeddings drawn N(0, 1) and
+   512/510/508/506 text tokens, 32 new, whole, in 128-token chunks (a
+   request with patches is admitted whole: none is chunked) and, on
+   damped weights, with ``spec_k=3``: paged_attn launches equal to the
+   CPU rehearsal's prediction (``VLM_LAUNCHES``), no other kernel, tok/s,
+   decode tok/s, TTFT p50/p99, a profiled repeat of whole prefill; one
+   bf16 decode step's logits, kernel against plain (held within 2^-5 on
+   rescaled weights), and moved by more than that by other images under
+   the same prompts; at 6 of its 24 layers in fp32, with the contribution
+   gate off and on, in every mode every launch held against the plain
+   version (2e-3) and the greedy streams, kernel against plain, equal;
+   then hubert-xlarge (48 layers, d 1,280, non-causal; 4 x 1,024 frames)
+   and internvl2-2b (2 x 1,024 positions, 256 of them patches) trained 3
+   steps each at full width and depth through the train CLI's
+   ``train_lm``: no kernel launched, losses finite, the peak memory, the
+   median step and positions/s, every leaf's gradient finite and
+   non-zero (``frontend`` included), one step timed and one profiled,
+   and the train CLI at 2 layers in float32 with the kernels' ops and
+   the plain ones: losses within 1e-5;
+14. one JSON line listing every ported kernel with its error, times, bound
    and launches (by model and mode; Pix-Con and the LSTM step by path,
    forecast and training, with their times at the training shapes; conv1d,
    the SSD chunk and local attention with their training shapes), then
    the line with the card's name and power limit;
-14. the last line, ``{"ok": true, "device": {...}}``.
+15. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card. ``torch.compile`` (the flex_attention yardstick)
 keeps its caches under ``build/`` and compiles in this process. Without CUDA, or run from a directory that does not
@@ -321,15 +344,35 @@ SERVED_RUNS = {
 # the host tier 256 MiB
 POL_PREFIX, POL_TAIL, POL_FAMILIES, POL_PER_FAMILY = 1024, (64, 192), 4, 4
 POL_GEN, POL_GEN_CUT, POL_HOST_BYTES = 32, 16, 256 << 20
-# and at half depth, to keep the whole run under 600 s with phase 11; the
-# host tier is scaled with the page blob (``page_bytes``), so that it holds
-# as many pages as at full depth
+# and at half depth, to keep the whole run near half its 1,200 s limit
+# (561.0 s on PR 21's run 4, 761.4 s on its slower final proof); the host
+# tier is scaled with the page blob (``page_bytes``), so that it holds as
+# many pages as at full depth
 POL_DEPTH = {"qwen2-1.5b": 14, "recurrentgemma-2b": 13}
 # The other dense decoders at full width, whole prefill only, on
 # qwen2-1.5b's queue cut to one wave (4 requests, 32 new tokens each);
 # llama3.2-3b at half its depth, to keep the script's time for phase 10
 DENSE_ARCHS, DENSE_LENS, DENSE_GEN = ("llama3.2-3b", "olmo-1b"), STEP_LENS, 32
 DENSE_DEPTH = {"llama3.2-3b": 14}
+# Phase 13, the front ends and the contribution gate: internvl2-2b at full
+# width and depth in bf16 on one wave (4 requests, each an image of 256
+# patches drawn N(0, 1) from the seed and 512/510/508/506 text tokens, 32
+# new), whole, in 128-token chunks (a request with patches is admitted
+# whole) and with spec_k=3 (damped weights); its fp32 checks at 6 of its
+# 24 layers, the gate off and on. paged_attn launches by mode, from a CPU
+# rehearsal at full depth (``scripts/frontend_rehearsal.py``): 24 layers
+# x 31 decode steps, whole and chunked alike; the spec run's verify and
+# decode steps. hubert-xlarge (4 x 1,024 frames) and internvl2-2b (2 x
+# 1,024 positions: 256 patches + 768 text) trained 3 steps each at full
+# width and depth, launching no kernel; the float32 kernel-against-plain
+# run through the train CLI at ``check_layers``.
+VLM_ARCH, VLM_PATCHES, VLM_LENS, VLM_GEN = "internvl2-2b", 256, STEP_LENS, 32
+VLM_F32_DEPTH = 6
+VLM_LAUNCHES = {"whole": 24 * 31, "chunked": 24 * 31, "spec": 24 * 16}
+FE_TRAIN = {
+    "hubert-xlarge": {"batch": 4, "seq": 1024, "steps": 3, "check_layers": 2},
+    "internvl2-2b": {"batch": 2, "seq": 1024, "steps": 3, "check_layers": 2},
+}
 # Phase 11, mixture-of-experts serving: qwen3-moe-30b-a3b at full width and
 # depth (48 layers, 30.5 B params, 61 GB in bf16) on one wave (4 requests
 # of 512/510/508/506 tokens, 32 new each) in three modes, its profiled
@@ -1229,11 +1272,12 @@ def check_paged_attn(g, dev) -> dict:
     D=256, softcap 50, a local layer's window of 4,096 and a global
     layer's none, 290 pages a slot); llama3.2-3b's (24 on 8) and olmo-1b's
     (16 on 16) decode, D=128; qwen3-moe-30b-a3b's decode and verify (32
-    on 4) and deepseek-moe-16b's decode (16 on 16), D=128; and at small
-    shapes with a window, a softcap, unassigned pages and an empty row.
-    Then times at the main shapes, with the host time of a call and the
-    device time of a launch at gemma2's, llama3.2's, olmo's and the MoE
-    decoders'."""
+    on 4) and deepseek-moe-16b's decode (16 on 16), D=128; internvl2-2b's
+    decode and verify (16 on 8), D=128, 50-page rows; and at small shapes
+    with a window, a softcap, unassigned pages and an empty row. Then
+    times at the main shapes, with the host time of a call and the device
+    time of a launch at gemma2's, llama3.2's, olmo's, the MoE decoders'
+    and internvl2's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attn.ops import (
@@ -1292,6 +1336,22 @@ def check_paged_attn(g, dev) -> dict:
                           **moe_attn),
         "ds_decode": dict(B=4, T=1, lens=moe_mid, Hq=16, Hkv=16,
                           **moe_attn)})
+    # internvl2-2b, mid-way through phase 13's wave: 16 query heads on 8
+    # (G=2), D=128, rows of (256 patches + 512 text + 32 new) / 16 = 50
+    # pages, the image's positions cached before the text's
+    iv = dict(Hq=16, Hkv=8, D=128, ps=16, window=0, softcap=0.0,
+              n=-(-(VLM_PATCHES + max(VLM_LENS) + VLM_GEN) // 16))
+    iv_mid = [VLM_PATCHES + n + VLM_GEN // 2 for n in VLM_LENS]
+    main.update({
+        "iv_decode": dict(B=4, T=1, lens=iv_mid, **iv),
+        "iv_verify": dict(B=4, T=LM_SPEC_K + 1, lens=iv_mid, **iv)})
+    # internvl2's shapes draw from a generator of their own: the inputs
+    # that every later check of phase 2 draws from ``g`` stay those of the
+    # runs before these shapes were added
+    g_iv = torch.Generator().manual_seed(2222)
+
+    def gen_of(name):
+        return g_iv if name.startswith("iv_") else g
     small = [dict(B=3, T=7, Hq=4, Hkv=1, D=64, ps=4, n=6, lens=[13, 0, 9],
                   window=5, softcap=50.0),
              dict(B=2, T=3, Hq=8, Hkv=2, D=128, ps=16, n=3, lens=[20, 33],
@@ -1305,8 +1365,8 @@ def check_paged_attn(g, dev) -> dict:
         cases += [(f"small{i}", c) for i, c in enumerate(small)]
         for name, c in cases:
             kw = dict(window=c["window"], softcap=c["softcap"])
-            a = paged_inputs(g, dev, dtype, c["B"], c["T"], c["Hq"], c["Hkv"],
-                             c["D"], c["ps"], c["n"], c["lens"],
+            a = paged_inputs(gen_of(name), dev, dtype, c["B"], c["T"], c["Hq"],
+                             c["Hkv"], c["D"], c["ps"], c["n"], c["lens"],
                              c.get("qpos_end"))
             out = paged_attention_fused(**a, **kw)
             torch.cuda.synchronize()
@@ -1330,8 +1390,8 @@ def check_paged_attn(g, dev) -> dict:
         for name, c in main.items():
             win = dict(window=c["window"])
             kw = dict(win, softcap=c["softcap"])
-            a = paged_inputs(g, dev, dtype, c["B"], c["T"], c["Hq"], c["Hkv"],
-                             c["D"], c["ps"], c["n"], c["lens"],
+            a = paged_inputs(gen_of(name), dev, dtype, c["B"], c["T"], c["Hq"],
+                             c["Hkv"], c["D"], c["ps"], c["n"], c["lens"],
                              c.get("qpos_end"))
             call = lambda: paged_attention_fused(**a, **kw)
             ms = time_ms(call)
@@ -1355,7 +1415,7 @@ def check_paged_attn(g, dev) -> dict:
                                   call().float())
                 lib_ms = time_ms(lib)
             host = dev_us = None
-            if name.startswith(("g2_", "l32_", "olmo_", "q3_", "ds_")):
+            if name.startswith(("g2_", "l32_", "olmo_", "q3_", "ds_", "iv_")):
                 host = host_us(call)
                 dev_us = launch_device_us(call, "paged_attn", n=20)
             # bf16 inputs: the tensor cores' bf16 rate; fp32: the CUDA cores'
@@ -2045,6 +2105,21 @@ def requests_of(vocab: int, lens, gen: int) -> list:
             for i, n in enumerate(lens)]
 
 
+def request_len(r) -> int:
+    """Positions a request takes in its slot: its image's patches, its
+    prompt and its new tokens (the scheduler's ``_total_len``)."""
+    patches = r.extras["patches"].shape[0] if "patches" in r.extras else 0
+    return patches + len(r.prompt) + r.max_new
+
+
+def request_inputs(r) -> dict:
+    """A request's whole-prompt insert inputs: tokens, and its extras
+    (a VLM's patches), each with a leading batch axis of 1."""
+    import numpy as np
+    return {"tokens": r.prompt[None],
+            **{k: np.asarray(v)[None] for k, v in r.extras.items()}}
+
+
 def kernel_wrappers() -> dict:
     """Every ported kernel's wrapper, by name: each counts its launches."""
     from repro_torch.kernels.conv1d.ops import causal_conv1d
@@ -2102,7 +2177,7 @@ def serve_once(cfg, dev, params, dtype, mode: dict, reqs: list, ops=None,
     from repro_torch.serve import (
         InferenceEngine, ModelDrafter, NgramDrafter, Scheduler, stream_digest,
     )
-    max_len = max(len(r.prompt) + r.max_new for r in reqs)
+    max_len = max(request_len(r) for r in reqs)
     spec_k, slots = mode.get("spec_k", 0), mode.get("slots", LM_SLOTS)
     eng = InferenceEngine(cfg, slots=slots, max_len=max_len,
                           page_size=16, dtype=dtype, device=dev,
@@ -2181,7 +2256,7 @@ def first_parting(a: dict, b: dict) -> dict:
 
 
 def decode_logits_check(cfg, dev, params, dtype, reqs, cpu_control=False,
-                        pin_routes=False) -> dict:
+                        pin_routes=False, keep_logits=False) -> dict:
     """Admit the first LM_SLOTS requests of ``reqs`` by whole-prompt
     prefill, then run one decode_step_paged through the kernels and one
     through the plain versions on copies of the same state. Returns the
@@ -2194,19 +2269,22 @@ def decode_logits_check(cfg, dev, params, dtype, reqs, cpu_control=False,
     between the two steps are counted, and the plain step runs once more
     on the kernel step's routing (``Routes(replay=...)``): its logits'
     difference from the kernel's (``pinned_rel_err``) is the kernel's
-    rounding alone, without an expert chosen otherwise at a near-tie."""
+    rounding alone, without an expert chosen otherwise at a near-tie. A
+    request's patches go in with its prompt. With ``keep_logits``,
+    ``logits`` holds the kernel step's (slots, vocab) float32 logits on
+    the host."""
     import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import InferenceEngine
     reqs = reqs[:LM_SLOTS]
     eng = InferenceEngine(cfg, slots=LM_SLOTS,
-                          max_len=max(len(r.prompt) + r.max_new for r in reqs),
+                          max_len=max(request_len(r) for r in reqs),
                           page_size=16, dtype=dtype, device=dev)
     state = eng.init_state(params)
     for s, r in enumerate(reqs):
         pages = list(range(s * eng.pages_per_slot, (s + 1) * eng.pages_per_slot))
         state = eng.assign_pages(state, s, pages)
-        state, _ = eng.insert(state, {"tokens": r.prompt[None]}, s)
+        state, _ = eng.insert(state, request_inputs(r), s)
 
     def step(p, cache, ops, d):
         act = torch.ones(LM_SLOTS, dtype=torch.bool, device=d)
@@ -2226,6 +2304,8 @@ def decode_logits_check(cfg, dev, params, dtype, reqs, cpu_control=False,
     out = {"rel_err": max_err(kern, plain) / scale,
            "argmax_equal": (kern.argmax(-1) == plain.argmax(-1)).tolist(),
            "top2_gap": (top2[:, 0] - top2[:, 1]).tolist(), "scale": scale}
+    if keep_logits:
+        out["logits"] = kern
     if pin_routes:
         out["routing_flips"] = routing_flips(
             kernel_routes.calls, plain_routes.calls,
@@ -3460,6 +3540,38 @@ def lm_grad_check(arch: str, spec: dict, dev) -> dict:
             "worst_leaf": leaf, "leaves": len(grads[0]), "bad_leaves": bad}
 
 
+def time_one_step(eng, holder: list, batch, host: bool = True) -> dict:
+    """Three more steps of ``eng`` on ``batch`` from the state in
+    ``holder[0]`` (replaced by each step's, as the step is donated): a
+    warm one, one timed by the host clock and CUDA events (its device
+    span) and one profiled (device busy time over that span, time by
+    kernel; ``host=False`` traces the device alone), printed."""
+    import torch
+
+    def one_step():
+        holder[0], _ = eng.step(holder[0], batch)
+    one_step()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    one_step()
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    span_s = start.elapsed_time(end) * 1e-3
+    prof = device_breakdown(one_step, top=16, host=host)
+    busy = prof["device_busy_s"]
+    share = None if busy is None else busy / span_s
+    print(f"  one step: wall {wall_s:.4f} s, device span {span_s:.4f} s; "
+          f"a profiled step: device busy {busy} s (wall {prof['wall_s']:.4f}"
+          f" s under the profiler), busy share of the span {share}")
+    for r in prof["by_kernel"]:
+        print(f"    {r['device_ms']:9.3f} ms  {r['calls']:6d}  {r['kernel']}")
+    return {"prof": prof, "step_wall_s": wall_s, "step_device_span_s": span_s,
+            "device_busy_share": share}
+
+
 def lm_training_main_path(dev) -> dict:
     """recurrentgemma-2b and mamba2-130m trained at full width and depth
     through the train CLI's ``train_lm`` (``LM_TRAIN``), each with the
@@ -3520,32 +3632,10 @@ def lm_training_main_path(dev) -> dict:
               f"{arch}: leaves without a finite non-zero gradient: {bad[:8]}")
         del grads, loss
         holder = [state]
-
-        def one_step():
-            holder[0], _ = eng.step(holder[0], batch)
-        one_step()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        one_step()
-        end.record()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        span_s = start.elapsed_time(end) * 1e-3
-        prof = device_breakdown(one_step, top=16)
-        busy = prof["device_busy_s"]
-        share = None if busy is None else busy / span_s
-        print(f"  one step: wall {wall_s:.4f} s, device span {span_s:.4f} s; "
-              f"a profiled step: device busy {busy} s (wall {prof['wall_s']:.4f}"
-              f" s under the profiler), busy share of the span {share}")
-        for r in prof["by_kernel"]:
-            print(f"    {r['device_ms']:9.3f} ms  {r['calls']:6d}  {r['kernel']}")
-        res = {"launches": {"train": launches}, "profile": prof,
+        timing = time_one_step(eng, holder, batch)
+        res = {"launches": {"train": launches}, "profile": timing.pop("prof"),
                "record": {k: v for k, v in rec.items()},
-               "tokens_per_s": B * S / rec["step_p50_s"],
-               "step_wall_s": wall_s, "step_device_span_s": span_s,
-               "device_busy_share": share}
+               "tokens_per_s": B * S / rec["step_p50_s"], **timing}
         if arch == "mamba2-130m":
             rng = np.random.default_rng(SEED)
             prompt = rng.integers(0, eng.cfg.vocab_size,
@@ -3590,6 +3680,277 @@ def lm_training_main_path(dev) -> dict:
         print("  " + json.dumps({arch: {k: v for k, v in res.items()
                                         if k != "profile"}}))
         out[f"{arch} training"] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the front ends and the contribution gate
+# ---------------------------------------------------------------------------
+def vlm_requests_of(cfg, lens, gen: int, image_seed: int = LM_SEED) -> list:
+    """``requests_of``'s queue, each request with its image: (num_patches,
+    frontend_dim) patch embeddings drawn N(0, 1), from ``image_seed`` + 1
+    (another seed, the same prompts and another image)."""
+    import numpy as np
+    rng = np.random.default_rng(image_seed + 1)
+    reqs = requests_of(cfg.vocab_size, lens, gen)
+    for r in reqs:
+        r.extras = {"patches": rng.normal(size=(
+            cfg.num_patches, cfg.frontend_dim)).astype(np.float32)}
+    return reqs
+
+
+def train_cli_plain_check(arch: str, spec: dict) -> dict:
+    """The train CLI's ``train_lm`` at full width, ``spec["check_layers"]``
+    layers and float32 activations, 2 steps from the same seed through the
+    kernels and through ``transformer.PLAIN`` (its config's depth and its
+    engine's dtype and ops patched in): the losses, and each run's
+    launches."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import Engine
+    argv = ["--arch", arch, "--batch-size", str(spec["batch"]), "--seq-len",
+            str(spec["seq"]), "--steps", "2", "--seed", str(SEED)]
+
+    def run(ops):
+        class Float32Engine:
+            @staticmethod
+            def for_lm(cfg, tc, **kw):
+                return Engine.for_lm(cfg, tc, dtype=torch.float32, ops=ops,
+                                     **kw)
+        cut = lambda a: get_config(a).replace(num_layers=spec["check_layers"])
+        with mock.patch.object(train_cli, "get_config", cut), \
+                mock.patch.object(train_cli, "Engine", Float32Engine):
+            reset_launches()
+            rec = train_cli.train_lm(train_cli.parse_args(argv))[0]
+            return rec, read_launches()
+    (k, k_launches), (p, p_launches) = run(tfm.KERNELS), run(tfm.PLAIN)
+    rel = max(abs(k[n] - p[n]) / abs(p[n]) for n in ("first_loss",
+                                                      "last_loss"))
+    return {"layers": spec["check_layers"], "losses": [k["first_loss"],
+                                                       k["last_loss"]],
+            "plain_losses": [p["first_loss"], p["last_loss"]],
+            "loss_rel_err": rel, "launches": k_launches,
+            "plain_launches": p_launches}
+
+
+def frontend_main_path(dev) -> dict:
+    """Phase 13. internvl2-2b at full width and depth (random weights from
+    the port's init, seed 0, bf16) served on one wave of requests with
+    images in three modes, each with the launch counts set to 0 just
+    before and read just after: paged_attn as predicted
+    (``VLM_LAUNCHES``), every other kernel 0, no request chunked; the
+    whole-prefill mode profiled once; the spec mode on the damped weights.
+    Then one bf16 decode step's logits, kernel against plain (printed on
+    the main weights, held within 2^-5 on the rescaled ones), and against
+    the same step on other images (the image must move the logits). Then
+    at 6 of the 24 layers in float32, the gate off and on: in each mode
+    every launch held against the plain version (``checked_ops``, which
+    serves the plain results) and the kernel run's greedy stream equal to
+    that run's (rescaled weights; spec damped). Last, hubert-xlarge and
+    internvl2-2b trained at full width and depth through the train CLI's
+    ``train_lm`` (``FE_TRAIN``): no kernel launched, losses finite, every
+    leaf's gradient finite and non-zero (``frontend`` included; hubert's
+    token embedding, which the audio stub never reads, has none, as in
+    the reference), one step timed and one profiled; and the CLI at
+    reduced depth in float32, kernels against plain
+    (``train_cli_plain_check``)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenSource
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import accumulate_grads
+    bf16 = torch.bfloat16
+    modes = {"whole": {}, "chunked": {"prefill_chunk": LM_CHUNK},
+             "spec": {"spec_k": LM_SPEC_K}}
+    out = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+    free()
+    stamp("phase 13 starts")
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    pbf = init_params(cfg, dev, bf16)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _leaves(pbf))
+    print(f"  {cfg.name} params: {nparams / 1e9:.3f} B, {cfg.num_layers} "
+          f"layers, d {cfg.d_model}, {cfg.num_heads} heads on "
+          f"{cfg.num_kv_heads}, vocab {cfg.vocab_size}, {cfg.num_patches} "
+          f"patches of {cfg.frontend_dim}, init "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def wave(image_seed=LM_SEED, c=cfg):
+        return vlm_requests_of(c, VLM_LENS, VLM_GEN, image_seed)
+    serve_once(cfg, dev, pbf, bf16, {"spec_k": LM_SPEC_K},
+               vlm_requests_of(cfg, VLM_LENS[:2], 4))            # warm-up
+    runs = {}
+    for name, mode in modes.items():
+        r = serve_once(cfg, dev, damped(cfg, pbf) if name == "spec" else pbf,
+                       bf16, mode, wave(),
+                       profile_reqs=wave() if name == "whole" else None)
+        check_tokens(cfg, name, r, wave())
+        check_spec(cfg.name, name, r)
+        got, want = r["launches"], VLM_LAUNCHES[name]
+        check(got["paged_attn"] == want and not any(
+            v for k, v in got.items() if k != "paged_attn"),
+            f"{cfg.name} {name}: launches {got}, paged_attn predicted {want}")
+        check(r["stats"]["prefill_chunks"] == 0,
+              f"{cfg.name} {name}: a request with patches was chunked")
+        runs[name] = r
+        print_run(cfg.name, name, r)
+    stamp(f"{cfg.name} bf16 served runs done")
+
+    well = well_conditioned(cfg, pbf)
+    logits = {}
+    for tag, p in (("main weights", pbf), ("rescaled weights", well)):
+        logits[tag] = decode_logits_check(cfg, dev, p, bf16, wave(),
+                                          keep_logits=True)
+        print(f"  {cfg.name} bf16 decode_step_paged logits, {tag}: kernel "
+              f"vs plain {logits[tag]['rel_err']:.3e} of the largest "
+              f"|logit| (tolerance {REL_LOGITS_BF16} on the rescaled "
+              f"weights); argmax equal {logits[tag]['argmax_equal']}")
+    rel = logits["rescaled weights"]["rel_err"]
+    check(rel <= REL_LOGITS_BF16, f"{cfg.name} bf16 decode logits differ by "
+          f"{rel}")
+    other = decode_logits_check(cfg, dev, well, bf16, wave(LM_SEED + 10),
+                                keep_logits=True)["logits"]
+    first = logits["rescaled weights"]["logits"]
+    image_moves = max_err(first, other) / float(first.abs().max())
+    for bf in logits.values():
+        del bf["logits"]
+    print(f"  {cfg.name}: other images, the same prompts: the first decode "
+          f"step's logits move by {image_moves:.3e} of the largest |logit|")
+    check(image_moves > REL_LOGITS_BF16, f"{cfg.name}: the image moves the "
+          f"logits by {image_moves} only")
+    del pbf, well
+    free()
+    stamp(f"{cfg.name} bf16 checks done")
+
+    # fp32 at 6 layers, the gate off and on: each launch against the plain
+    # version, and the kernels' streams against the checked run's (which
+    # serves the plain results); rescaled weights, spec damped
+    f32 = {}
+    for gate in (False, True):
+        cfg6 = cfg.replace(num_layers=VLM_F32_DEPTH, contribution_gate=gate)
+        p32 = init_params(cfg6, dev)
+        weights = {"rescaled": well_conditioned(cfg6, p32),
+                   "damped": damped(cfg6, p32)}
+        del p32
+        for name, mode in modes.items():
+            tag = "damped" if name == "spec" else "rescaled"
+            ops = checked_ops()
+            chk = serve_once(cfg6, dev, weights[tag], torch.float32, mode,
+                             wave(c=cfg6), ops=ops)
+            ker = serve_once(cfg6, dev, weights[tag], torch.float32, mode,
+                             wave(c=cfg6))
+            for r in (chk, ker):
+                check_spec(cfg6.name, name, r)
+            rows = {k: {"launches": c.calls, "max_rel_err": c.max_rel}
+                    for k, c in zip(tfm.KernelOps._fields, ops)}
+            c = rows["paged_attn"]
+            key = f"{name}, gate {'on' if gate else 'off'}"
+            f32[key] = {"checked": c, "streams_equal": ker["gen"] == chk["gen"],
+                        "first_parting": first_parting(ker["gen"], chk["gen"]),
+                        "kernel_launches": ker["launches"]["paged_attn"],
+                        "kernel_tok_per_s": ker["tok_per_s"],
+                        "plain_tok_per_s": chk["tok_per_s"]}
+            print(f"  {cfg.name} ({VLM_F32_DEPTH} layers) {key} fp32, {tag} "
+                  f"weights: {c['launches']} paged_attn launches held against "
+                  f"the plain version, max error {c['max_rel_err']:.3e} of the "
+                  f"output's largest |value| (tolerance {REL_F32}); greedy "
+                  f"streams equal: {f32[key]['streams_equal']} (first "
+                  f"parting {f32[key]['first_parting']})")
+            check(all(v["launches"] == 0 for k, v in rows.items()
+                      if k != "paged_attn"), f"fp32 {key}: {rows}")
+            check(not any(v for k, v in ker["launches"].items()
+                          if k != "paged_attn")
+                  and ker["launches"]["paged_attn"] > 0,
+                  f"fp32 {key}: launches {ker['launches']}")
+            check(c["launches"] > 0 and c["max_rel_err"] <= REL_F32,
+                  f"fp32 {key}: kernel differs from plain by "
+                  f"{c['max_rel_err']}")
+            check(f32[key]["streams_equal"],
+                  f"fp32 {key}: kernel and plain streams differ")
+        del weights
+        free()
+    stamp(f"{cfg.name} fp32 checks done")
+    print("  " + json.dumps({cfg.name: run_summary(runs), "fp32": f32,
+                             "bf16_logits": logits,
+                             "image_moves_logits": image_moves}))
+    out[cfg.name] = {"launches": {n: r["launches"] for n, r in runs.items()},
+                     "profile": runs["whole"]["profile"]}
+
+    for arch, spec in FE_TRAIN.items():
+        free()
+        B, S, n = spec["batch"], spec["seq"], spec["steps"]
+        argv = ["--arch", arch, "--batch-size", str(B), "--seq-len", str(S),
+                "--steps", str(n), "--seed", str(SEED)]
+        print(f"  python -m repro_torch.launch.train {' '.join(argv)}")
+        torch.cuda.synchronize()
+        reset_launches()
+        rec, eng, state = train_cli.train_lm(train_cli.parse_args(argv))
+        launches = read_launches()
+        print(f"  {arch}: {rec['params'] / 1e9:.3f} B params, {n} steps of "
+              f"{B} x {S} positions: loss {rec['first_loss']:.4f} -> "
+              f"{rec['last_loss']:.4f}, step p50 {rec['step_p50_s']:.4f} s "
+              f"({B * S / rec['step_p50_s']:.1f} positions/s), peak memory "
+              f"{(rec['peak_memory_bytes'] or 0) / 1e9:.3f} GB; launches "
+              f"{launches}")
+        check(not any(launches.values()), f"{arch} training launched "
+              f"{launches}: its path has no kernel")
+        check(rec["steps"] == n and bool(np.isfinite(
+            [rec["first_loss"], rec["last_loss"]]).all()),
+            f"{arch}: steps {rec['steps']}, losses {rec['first_loss']} "
+            f"{rec['last_loss']}")
+        batch = eng.place_batch(TokenSource(eng.cfg, B, S,
+                                            seed=SEED).host_batch(n))
+        grads, loss, _ = accumulate_grads(eng.loss_fn, state.params, batch, 1)
+        unread = {"embed/embedding"} if eng.cfg.frontend == "audio_stub" \
+            else set()
+        bad = [k for k, v in grads.items() if k not in unread and not (
+            bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0)]
+        front = [k for k in grads if k.startswith("frontend/")]
+        print(f"  every leaf's gradient at full depth: "
+              f"{len(grads) - len(bad) - len(unread)} of "
+              f"{len(grads) - len(unread)} finite and non-zero, {front} "
+              f"among them (loss {float(loss):.4f}); unread, zero: "
+              f"{sorted(unread)}")
+        check(not bad and front and bool(torch.isfinite(loss).all()) and all(
+            not grads[k].any() for k in unread),
+            f"{arch}: leaves without a finite non-zero gradient: {bad[:8]}")
+        del grads, loss
+        holder = [state]
+        del state
+        stamp(f"{arch} trained, gradients checked")
+        timing = time_one_step(eng, holder, batch, host=False)
+        res = {"launches": {"train": launches}, "profile": timing.pop("prof"),
+               "record": dict(rec), "positions_per_s": B * S / rec["step_p50_s"],
+               **timing}
+        del holder, eng, batch
+        free()
+        stamp(f"{arch} step timed and profiled")
+        c = train_cli_plain_check(arch, spec)
+        print(f"  train CLI, float32, {c['layers']} layers: losses "
+              f"{c['losses']} through the kernels' ops, {c['plain_losses']} "
+              f"through the plain ones, within {c['loss_rel_err']:.3e}; "
+              f"launches {c['launches']} and {c['plain_launches']}")
+        check(c["loss_rel_err"] <= 1e-5 and not any(c["launches"].values())
+              and not any(c["plain_launches"].values()),
+              f"{arch} float32 train CLI, kernels vs plain: {c}")
+        res["cli_float32_check"] = c
+        print("  " + json.dumps({arch: {k: v for k, v in res.items()
+                                        if k != "profile"}}))
+        out[f"{arch} training"] = res
+        stamp(f"{arch} training done")
     return out
 
 
@@ -3715,6 +4076,8 @@ def main() -> int:
     by_model.update(moe_main_path(dev))
     print(f"[12] main path: LM training, recurrentgemma-2b and mamba2-130m (at {time.perf_counter() - T_START:.0f} s)")
     by_model.update(lm_training_main_path(dev))
+    print(f"[13] main path: front ends and the contribution gate, internvl2-2b served, hubert-xlarge and internvl2-2b trained (at {time.perf_counter() - T_START:.0f} s)")
+    by_model.update(frontend_main_path(dev))
     for res in by_model.values():
         for counts in res["launches"].values():
             for name, c in counts.items():
@@ -3737,7 +4100,7 @@ def main() -> int:
             arch: device_ms_per_launch(res["profile"]).get(k["name"])
             for arch, res in by_model.items()
             if arch in k["launches_by_mode"] and res["profile"]}
-    print(f"[13] all phases passed in {time.perf_counter() - T_START:.1f} s")
+    print(f"[14] all phases passed in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
 """Config registry. Importing this package registers the Dom-ST variants,
-the dense decoders, the mixture-of-experts decoders, the SSM and the
-RG-LRU hybrid the port runs."""
+the dense decoders, the mixture-of-experts decoders, the SSM, the RG-LRU
+hybrid, the VLM and the audio encoder the port runs: every config of the
+reference."""
 from repro_torch.configs.base import (  # noqa: F401
     ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, SSM, DomSTConfig, ModelConfig,
     MoEConfig, PixConConfig, RGLRUConfig, SSMConfig, TrainConfig, get_config,
     list_configs, register,
 )
 from repro_torch.configs import (  # noqa: F401
-    deepseek_moe_16b, domst, gemma2_2b, llama3_2_3b, mamba2_130m, olmo_1b,
-    qwen2_1_5b, qwen3_moe_30b_a3b, recurrentgemma_2b,
+    deepseek_moe_16b, domst, gemma2_2b, hubert_xlarge, internvl2_2b,
+    llama3_2_3b, mamba2_130m, olmo_1b, qwen2_1_5b, qwen3_moe_30b_a3b,
+    recurrentgemma_2b,
 )
 from repro_torch.configs.smoke import smoke_variant  # noqa: F401

@@ -1,6 +1,7 @@
 """Configuration dataclasses for the port: a copy of what the Dom-ST, the
-dense-decoder, the mixture-of-experts, the Mamba-2 and the RecurrentGemma
-paths read of the reference's ``configs/base.py``.
+dense-decoder, the mixture-of-experts, the Mamba-2, the RecurrentGemma
+and the front-end (VLM, audio) paths read of the reference's
+``configs/base.py``.
 
 ``MoEConfig``, ``SSMConfig``, ``RGLRUConfig``, ``PixConConfig``,
 ``DomSTConfig``, ``ModelConfig`` and ``TrainConfig`` are field-for-field
@@ -108,8 +109,9 @@ class ModelConfig:
 
     ``family`` selects the top-level model builder:
       dense | moe | ssm | hybrid | encoder | vlm | audio | domst
-    The port runs the ``domst`` family, the dense decoders, ``moe``,
-    ``ssm`` (Mamba-2) and the RG-LRU/local-attention ``hybrid``.
+    The port runs every family: ``vlm`` and ``audio`` use the same
+    decoder/encoder stack but take precomputed patch/frame embeddings
+    (front-end stubs).
     """
 
     name: str

@@ -1,8 +1,9 @@
 """Reduced smoke-test variants: 2 layers, d_model <= 256, vocab <= 512,
 <= 4 experts; for Dom-ST 16 pixels, 8-day windows and narrow layers.
 
-A copy of the Dom-ST, LM, MoE, SSM and RG-LRU branches of the reference's
-``configs/smoke.py::smoke_variant``, for the families the port runs.
+A copy of the reference's ``configs/smoke.py::smoke_variant``: the Dom-ST
+branch, and the LM one with its MoE, SSM and RG-LRU parts and the front
+ends' patch count (<= 8) and feature width (<= 64).
 """
 from __future__ import annotations
 

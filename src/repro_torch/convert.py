@@ -27,7 +27,10 @@ suffix). Leaves keep the reference's shapes and names, in the attention
 (``ssm``, with its nested ``out_norm``) and FFN subtrees alike; a MoE
 FFN keeps its ``router``, its experts stacked on a leading expert axis
 (``w_gate``, ``w_up``, ``w_down``) and its ``shared`` MLP, and
-deepseek-moe's dense first layer comes from ``prefix``.
+deepseek-moe's dense first layer comes from ``prefix``. The contribution
+gate (``gate``: ``w1``, ``b1``, ``w2``) and a front end (``frontend``:
+the audio stub's ``proj``/``proj_b``, the vision stub's ``w1``, ``b1``,
+``w2``, ``b2``) are not stacked and carry over as they are.
 :func:`lm_params_to_jax` is its inverse, which restacks the repetitions
 for the checkpoints the port writes in the reference's layout.
 
@@ -47,6 +50,8 @@ import torch
 from repro_torch.kernels.lstm_cell.ops import split_gates
 
 _LSTM_LEAF = re.compile(r"(^|/)lstm\d+/(wx|wh|b)$")
+# an LM tree's subtrees outside the layer stack, beside the embedding
+_UNSTACKED = ("gate", "frontend")
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -112,9 +117,11 @@ def params_from_jax(tree: Mapping[str, Any], device: str | torch.device = "cpu"
 
 def lm_params_from_jax(tree: Mapping[str, Any],
                        device: str | torch.device = "cpu") -> Dict[str, Any]:
-    """Reference LM tree (``embed``, ``final_norm``, optional ``prefix`` /
-    ``suffix`` tuples, ``blocks`` stacked over repetitions) -> ``{"embed",
-    "final_norm", "layers": [per-layer dict, ...]}`` of float32 tensors."""
+    """Reference LM tree (``embed``, ``final_norm``, optional ``gate`` and
+    ``frontend``, optional ``prefix`` / ``suffix`` tuples, ``blocks``
+    stacked over repetitions) -> ``{"embed", "final_norm", ["gate",]
+    ["frontend",] "layers": [per-layer dict, ...]}`` of float32
+    tensors."""
     def leaf(v):
         return torch.as_tensor(np.array(v, np.float32), device=device).contiguous()
 
@@ -122,10 +129,10 @@ def lm_params_from_jax(tree: Mapping[str, Any],
         return {k: nested(v, at) if isinstance(v, Mapping) else at(v)
                 for k, v in t.items()}
 
-    unknown = set(tree) - {"embed", "final_norm", "prefix", "blocks", "suffix"}
+    unknown = set(tree) - {"embed", "final_norm", "prefix", "blocks",
+                           "suffix", *_UNSTACKED}
     if unknown:
-        raise NotImplementedError(
-            f"LM params with {sorted(unknown)} are not ported")
+        raise ValueError(f"LM params with unknown subtrees {sorted(unknown)}")
     layers = [nested(lp) for lp in tree.get("prefix", ())]
     if "blocks" in tree:
         blocks = tree["blocks"]
@@ -136,8 +143,11 @@ def lm_params_from_jax(tree: Mapping[str, Any],
                 layers.append(nested(blocks[i], lambda a: leaf(
                     np.asarray(a)[r])))
     layers += [nested(lp) for lp in tree.get("suffix", ())]
-    return {"embed": nested(tree["embed"]),
-            "final_norm": nested(tree["final_norm"]), "layers": layers}
+    out = {"embed": nested(tree["embed"]),
+           "final_norm": nested(tree["final_norm"])}
+    out.update({k: nested(tree[k]) for k in _UNSTACKED if k in tree})
+    out["layers"] = layers
+    return out
 
 
 def lm_params_to_jax(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
@@ -168,6 +178,7 @@ def lm_params_to_jax(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
                          "stack plan")
     out: Dict[str, Any] = {"embed": nested(params["embed"]),
                            "final_norm": nested(params["final_norm"])}
+    out.update({k: nested(params[k]) for k in _UNSTACKED if k in params})
     if prefix:
         out["prefix"] = tuple(nested(lp) for lp in layers[:len(prefix)])
     if n_rep:

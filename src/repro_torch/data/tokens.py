@@ -1,10 +1,9 @@
-"""Synthetic token batches for LM training: a copy of the reference's
-``data/tokens.py`` (numpy only), held bit-equal to it by the tests.
+"""Synthetic token, frame and patch batches for LM training: a copy of
+the reference's ``data/tokens.py`` (numpy only), held bit-equal to it by
+the tests.
 
 Token streams come from a seeded Zipfian n-gram process (so loss actually
-decreases during smoke training, unlike uniform noise). Only the token
-family is ported: the audio and vision front ends are not (ROADMAP
-Queue A), so their batches raise.
+decreases during smoke training, unlike uniform noise).
 """
 from __future__ import annotations
 
@@ -33,13 +32,28 @@ def _zipf_tokens(rng: np.random.Generator, shape, vocab: int) -> np.ndarray:
 
 def synthetic_token_batch(cfg: ModelConfig, batch: int, seq_len: int,
                           seed: int = 0) -> Dict[str, np.ndarray]:
-    """``{"tokens", "targets"}`` (B, S) int32: the next-token pairs of one
-    Zipfian stream of S+1 tokens a row."""
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} batches need a front end, which is "
-            "not ported yet (ROADMAP Queue A)")
+    """The batch of cfg's family, drawn in the reference's order. Tokens:
+    ``{"tokens", "targets"}`` (B, S) int32, the next-token pairs of one
+    Zipfian stream of S+1 tokens a row. Audio: ``frames`` (B, S, Fd)
+    float32 N(0, 1), unit ``targets`` and a HuBERT-style ``loss_mask``
+    over ~8% of the frames. VLM: ``patches`` (B, P, Fd) float32 N(0, 1)
+    and the token pairs of the S - P text positions."""
     rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        frames = rng.normal(0, 1, (batch, seq_len, cfg.frontend_dim))
+        targets = _zipf_tokens(rng, (batch, seq_len), cfg.vocab_size)
+        # HuBERT-style mask: ~8% spans masked; loss only on masked frames
+        mask = (rng.random((batch, seq_len)) < 0.08).astype(np.float32)
+        return {"frames": frames.astype(np.float32), "targets": targets,
+                "loss_mask": mask}
+    if cfg.family == "vlm":
+        p = cfg.num_patches
+        text_len = seq_len - p
+        toks = _zipf_tokens(rng, (batch, text_len + 1), cfg.vocab_size)
+        patches = rng.normal(0, 1, (batch, p, cfg.frontend_dim))
+        return {"patches": patches.astype(np.float32),
+                "tokens": toks[:, :-1],
+                "targets": toks[:, 1:]}
     toks = _zipf_tokens(rng, (batch, seq_len + 1), cfg.vocab_size)
     return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 

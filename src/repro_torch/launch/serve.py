@@ -13,9 +13,11 @@ Two modes, as in the reference's ``repro/launch/serve.py``:
     local layers and softcaps), mixture-of-experts (``--arch
     qwen3-moe-30b-a3b`` with QK norm, ``deepseek-moe-16b`` with shared
     experts and a dense first layer), RG-LRU/local-attention hybrid
-    (``--arch recurrentgemma-2b``) or SSM (``--arch mamba2-130m``),
-    ``--smoke`` for
-    the reduced variant — continuous batching over the paged
+    (``--arch recurrentgemma-2b``), SSM (``--arch mamba2-130m``) or the
+    VLM (``--arch internvl2-2b``: each request brings its image as
+    zero patch embeddings, as the reference's launcher sends them, and
+    the cache length counts them), ``--smoke`` for the reduced variant —
+    continuous batching over the paged
     :class:`InferenceEngine` through the :class:`Scheduler`: one
     whole-prompt prefill per request (or ``--prefill-chunk N`` tokens at a
     time, interleaved with decode steps), one fused all-slot decode step
@@ -34,6 +36,8 @@ Two modes, as in the reference's ``repro/launch/serve.py``:
     reference's JSON keys, ``stream_digest`` among them, and the device;
     ``--trace-out``, ``--metrics-out`` and ``--profile-dir`` write the
     request spans, the metric registry and a ``torch.profiler`` trace.
+    ``--arch hubert-xlarge`` exits with the reference's message: an
+    encoder has no decode path.
 
 Runs on the card unless ``--device cpu`` is given; without a card it
 raises.
@@ -55,6 +59,8 @@ raises.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen3-moe-30b-a3b --smoke --device cpu --spec-k 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \\
+      --requests 4 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --smoke --device cpu --shared-prefix 16 \\
       --prefix-cache --preempt --temperature 0.8 --top-p 0.9 --spec-k 3
@@ -167,10 +173,14 @@ def make_requests(cfg, args) -> list:
         n = args.prompt_len
         if args.ragged:
             n = max(4, args.prompt_len - (i % 4) * 2)
+        extras = {}
+        if cfg.family == "vlm":
+            extras["patches"] = np.zeros(
+                (cfg.num_patches, cfg.frontend_dim), np.float32)
         tail = rng.integers(0, cfg.vocab_size,
                             max(1, n - sp)).astype(np.int32)
         reqs.append(Request(
-            rid=i, max_new=args.gen,
+            rid=i, max_new=args.gen, extras=extras,
             prompt=np.concatenate([prefix, tail]) if sp else tail,
             sampling=_sampling(args, i)))
     return reqs
@@ -200,11 +210,14 @@ def serve_lm(args) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if not cfg.supports_decode():
+        raise SystemExit(f"{cfg.name} is encoder-only; no decode path")
     if args.host_cache_mb and not args.prefix_cache:
         raise SystemExit("--host-cache-mb is a spill tier FOR the prefix "
                          "cache; it requires --prefix-cache")
     reqs = make_requests(cfg, args)
-    max_len = args.max_len or max(len(r.prompt) + r.max_new for r in reqs)
+    max_len = args.max_len or max(
+        len(r.prompt) + r.max_new + (cfg.num_patches or 0) for r in reqs)
     engine = InferenceEngine(cfg, slots=args.batch_size, max_len=max_len,
                              page_size=args.page_size,
                              num_pages=args.num_pages or None,
@@ -390,8 +403,8 @@ def main(argv=None) -> dict:
     if args.arch.startswith("domst"):
         return serve_domst(args)
     if args.arch not in list_configs():
-        ap.error(f"--arch {args.arch}: not ported yet (ROADMAP Queue A); "
-                 f"the port serves {', '.join(list_configs())}")
+        ap.error(f"--arch {args.arch}: unknown; one of "
+                 f"{', '.join(list_configs())}")
     return serve_lm(args)
 
 

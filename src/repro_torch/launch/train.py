@@ -8,7 +8,7 @@ The reference's ``repro/launch/train.py``, through the port's engine
   * ``--mode stacked`` (IP-D) — one replica per watershed on a leading
     axis, all updated by one step;
   * ``--mode sequential`` — one watershed at a time, each its own state;
-  * any LM arch the port runs (``--smoke`` for its reduced variant) —
+  * any LM arch (``--smoke`` for its reduced variant) —
     ``Engine.for_lm`` on the synthetic token stream
     (``data/tokens.py::TokenSource``), AdamW with block remat as the
     reference's ``train_lm`` sets it, bf16 activations over float32
@@ -17,8 +17,11 @@ The reference's ``repro/launch/train.py``, through the port's engine
     autograd through their plain versions the backward. It prints the
     reference's step lines, the peak device memory
     (``torch.cuda.max_memory_allocated``) and the reference's final JSON
-    record. The audio and vision front ends are not ported (ROADMAP
-    Queue A): those archs raise.
+    record. hubert-xlarge trains on frames (the audio stub, an encoder
+    with no causal mask) and internvl2-2b on patches before the text
+    (the vision stub): ``--seq-len`` counts every position, so
+    internvl2-2b's text is ``--seq-len`` less its 256 patches long, and a
+    ``--seq-len`` that leaves no text is refused.
 
 On the card each step's forward runs the Pix-Con and LSTM-step kernels
 and its backward runs autograd through their plain versions. Every
@@ -47,6 +50,10 @@ the run to ``DIR/trace.json``.
       --smoke --steps 3 --batch-size 4 --seq-len 32 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch recurrentgemma-2b --batch-size 2 --seq-len 2560 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \\
+      --batch-size 4 --seq-len 1024 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-2b \\
+      --smoke --steps 3 --batch-size 2 --seq-len 24 --device cpu
 """
 from __future__ import annotations
 
@@ -209,12 +216,15 @@ def train_lm(args):
     record, the engine, the final state): the live state is the
     train-to-serve hand-off (``InferenceEngine.from_train_state``)."""
     if args.arch not in list_configs():
-        raise NotImplementedError(
-            f"--arch {args.arch}: not ported yet (ROADMAP Queue A: the "
-            f"front ends); the port trains {', '.join(list_configs())}")
+        raise SystemExit(f"--arch {args.arch}: unknown; one of "
+                         f"{', '.join(list_configs())}")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if args.seq_len <= cfg.num_patches:
+        raise SystemExit(
+            f"--seq-len {args.seq_len} leaves no text after {cfg.name}'s "
+            f"{cfg.num_patches} image patches: it counts the patches too")
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      warmup_steps=max(args.steps // 10, 1), remat="block",
                      grad_accum=args.accum_steps, seed=args.seed)
@@ -289,7 +299,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--epochs", type=int, default=5)
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--seq-len", type=int, default=128,
-                    help="LM tokens a sequence")
+                    help="LM positions a sequence: tokens, audio frames, "
+                         "or a VLM's image patches and text tokens")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--watersheds", type=int, default=23)

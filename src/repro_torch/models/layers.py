@@ -1,4 +1,5 @@
-"""Shared layers: norms, rotary embeddings, embedding tables, softcap.
+"""Shared layers: norms, rotary embeddings, the sinusoidal position table,
+embedding tables, softcap.
 
 The port of ``repro/models/layers.py``. Weights arrive in the activation
 dtype or in float32; each function casts at use as the reference does
@@ -67,6 +68,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, dim: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """Fixed sinusoidal table (seq_len, dim), float32, on ``device``: the
+    HuBERT conv-pos-emb stand-in, computed in numpy as the reference's."""
+    pos = np.arange(offset, offset + seq_len, dtype=np.float32)[:, None]
+    i = np.arange(dim // 2, dtype=np.float32)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    table = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(table).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 whole-prompt prefill and the paged incremental paths (decode,
 speculative verify, chunked prefill).
 
-The port of the dense, mixture-of-experts, recurrent (RG-LRU) and SSM
-(Mamba-2) parts of ``repro/models/transformer.py``.
+The port of ``repro/models/transformer.py``: its dense,
+mixture-of-experts, recurrent (RG-LRU), SSM (Mamba-2), front-end and
+encoder parts, all but the contiguous (unpaged) cache.
 The reference scans a stacked ``params["blocks"]`` with a leading
 repetition axis; the port holds one parameter dict per layer in
 ``params["layers"]`` (prefix, then the pattern repetitions, then the
@@ -31,9 +32,16 @@ autograd through its plain version the backward.
 
 A MoE layer's FFN is ``models/moe.py``'s ``moe_block`` (deepseek-moe's
 first ``first_k_dense`` layers keep a dense FFN); QK norm is in
-``attention.qkv_project``. The audio/vision front ends and the
-contribution gate are not ported: the stack raises
-``NotImplementedError`` where a config would need them.
+``attention.qkv_project``. The front ends are in ``embed_inputs``:
+hubert-xlarge's audio stub projects precomputed frames and adds the
+sinusoidal table (an encoder: ``causal=False`` reaches the attention
+calls, and it has no decode path), internvl2-2b's vision stub projects
+precomputed patches through a two-layer GELU MLP and puts them before the
+text tokens; a step without patches (decode, verify, a chunk) embeds
+tokens only, and ``lm_loss`` drops the image positions. With
+``cfg.contribution_gate`` every path scales the embedded stream by
+``core/gating.py``'s per-token weight before the first layer, as the
+reference's ``run_stack`` and paged steps do.
 
 Every kernel the stack runs is named by ``ops`` (``KERNELS``): paged
 attention, the causal conv1d, the SSD chunk and local attention, the
@@ -46,10 +54,12 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import (
     ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, SSM, ModelConfig,
 )
+from repro_torch.core.gating import contribution_gate, gate_shapes
 from repro_torch.kernels.conv1d.ops import causal_conv1d
 from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
 from repro_torch.kernels.local_attn.ops import local_attention_fused
@@ -64,7 +74,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import PagedKVCache
-from repro_torch.models.layers import apply_norm, embed, unembed
+from repro_torch.models.layers import (
+    apply_norm, embed, sinusoidal_positions, unembed,
+)
 
 LayerKind = str
 Params = Dict[str, Any]
@@ -115,16 +127,12 @@ def _ffn_kind(cfg: ModelConfig, kind: LayerKind, *, in_prefix: bool) -> str:
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[LayerKind, str]]:
     """(kind, ffn) of every layer in stack order: prefix, pattern
-    repetitions, suffix. Raises for what the port cannot run yet."""
+    repetitions, suffix."""
     prefix, pat, n_rep, suffix = stack_plan(cfg)
     plan = [(k, _ffn_kind(cfg, k, in_prefix=True)) for k in prefix]
     plan += [(k, _ffn_kind(cfg, k, in_prefix=False))
              for _ in range(n_rep) for k in pat]
     plan += [(k, _ffn_kind(cfg, k, in_prefix=False)) for k in suffix]
-    if cfg.frontend is not None or cfg.contribution_gate:
-        raise NotImplementedError(
-            f"{cfg.name}: front ends and the contribution gate are not "
-            "ported yet (ROADMAP Queue A)")
     return plan
 
 
@@ -180,10 +188,25 @@ def _norm_shapes(kind: str, dim: int) -> Dict[str, tuple]:
     raise ValueError(f"unknown norm '{kind}'")
 
 
+def _frontend_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The front end's leaves: the audio stub's frame projection, or the
+    vision stub's two-layer patch projector; biases zero."""
+    fd, d = cfg.frontend_dim, cfg.d_model
+    if cfg.frontend == "audio_stub":
+        return {"proj": ((fd, d), "normal", None),
+                "proj_b": ((d,), "zeros", None)}
+    if cfg.frontend == "vision_stub":
+        return {"w1": ((fd, d), "normal", None), "b1": ((d,), "zeros", None),
+                "w2": ((d, d), "normal", None), "b2": ((d,), "zeros", None)}
+    raise ValueError(f"unknown front end '{cfg.frontend}'")
+
+
 def model_params(cfg: ModelConfig, make: Callable) -> Params:
     """The parameter tree, each leaf made by ``make(shape, init, scale,
     key)`` in the reference's order; ``key`` is the leaf's '/'-joined
-    path (``/layers/ffn/router``)."""
+    path (``/layers/ffn/router``). The contribution gate (``gate``) and
+    the front end (``frontend``) sit beside the embedding, as in the
+    reference's tree."""
     def build(tree, key):
         if isinstance(tree, dict):
             return {k: build(v, f"{key}/{k}") for k, v in tree.items()}
@@ -196,6 +219,10 @@ def model_params(cfg: ModelConfig, make: Callable) -> Params:
                                      "embed", 0.02, "/embed/unembed")
     p["final_norm"] = build(_norm_shapes(cfg.norm, cfg.d_model),
                             "/final_norm")
+    if cfg.contribution_gate:
+        p["gate"] = build(gate_shapes(cfg.d_model), "/gate")
+    if cfg.frontend is not None:
+        p["frontend"] = build(_frontend_shapes(cfg), "/frontend")
     p["layers"] = [build(_layer_shapes(cfg, kind, ffn), "/layers")
                    for kind, ffn in layer_plan(cfg)]
     return p
@@ -269,11 +296,34 @@ def cast_params(params: Params, dtype: torch.dtype,
 def embed_inputs(params: Params, cfg: ModelConfig,
                  inputs: Dict[str, torch.Tensor],
                  dtype=torch.bfloat16) -> torch.Tensor:
-    """Token embedding (the front ends are not ported)."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: {cfg.frontend} front end")
-    return embed(params["embed"], inputs["tokens"], scale=cfg.embed_scale,
-                 d_model=cfg.d_model, dtype=dtype)
+    """(B, S, d) in ``dtype``: the token embedding; for the audio stub,
+    ``frames`` (B, S, Fd) projected, plus the bias and the sinusoidal
+    table; for the vision stub with ``patches`` (B, P, Fd),
+    ``gelu(patches w1 + b1) w2 + b2`` (the tanh GELU, JAX's default)
+    before the tokens' embedding. Every step in ``dtype``, as the
+    reference casts its inputs."""
+    if cfg.frontend == "audio_stub":
+        f = params["frontend"]
+        x = inputs["frames"].to(dtype) @ f["proj"].to(dtype)
+        x = x + f["proj_b"].to(dtype)
+        return x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                        device=x.device).to(dtype)[None]
+    txt = embed(params["embed"], inputs["tokens"], scale=cfg.embed_scale,
+                d_model=cfg.d_model, dtype=dtype)
+    if cfg.frontend == "vision_stub" and "patches" in inputs:
+        f = params["frontend"]
+        h = F.gelu(inputs["patches"].to(dtype) @ f["w1"].to(dtype)
+                   + f["b1"].to(dtype), approximate="tanh")
+        img = h @ f["w2"].to(dtype) + f["b2"].to(dtype)
+        return torch.cat([img, txt], dim=1)
+    return txt
+
+
+def _gated(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The embedded stream through the contribution gate, where the config
+    has one."""
+    return contribution_gate(params["gate"], x) if cfg.contribution_gate \
+        else x
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +396,9 @@ def _apply_layer_step(lp, cfg: ModelConfig, x: torch.Tensor,
 
 def run_prefill_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                       max_len: int, ops: KernelOps = KERNELS):
-    """x (B,S,d) -> (final-normed x, per-layer caches of ``max_len``)."""
+    """x (B,S,d) -> (final-normed x, per-layer caches of ``max_len``),
+    the contribution gate first."""
+    x = _gated(params, cfg, x)
     caches = []
     for lp, (kind, ffn) in zip(params["layers"], layer_plan(cfg)):
         x, _, c = apply_layer(lp, cfg, x, kind, ffn, collect_cache=True,
@@ -358,11 +410,13 @@ def run_prefill_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
 def run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
               remat: bool = False, ops: KernelOps = KERNELS):
     """The training stack: x (B,S,d) -> (final-normed x, the MoE layers'
-    summed load-balance loss, float32). With ``remat`` each repetition of
-    the layer pattern runs under ``torch.utils.checkpoint``
-    (non-reentrant): its activations are recomputed in the backward,
-    kernels included; the prefix and the suffix keep theirs."""
+    summed load-balance loss, float32), the contribution gate first. With
+    ``remat`` each repetition of the layer pattern runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward, kernels included; the prefix and the
+    suffix keep theirs."""
     from torch.utils.checkpoint import checkpoint
+    x = _gated(params, cfg, x)
     prefix, pat, n_rep, _ = stack_plan(cfg)
     plan = layer_plan(cfg)
     layers = params["layers"]
@@ -409,7 +463,9 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, dtype=torch.bfloat16, remat: bool = False,
             loss_chunk: int = 512, ops: KernelOps = KERNELS):
     """Token cross-entropy of ``batch`` (``tokens``, ``targets`` (B,S),
-    optional ``loss_mask``), as the reference's: the logits in float32
+    optional ``loss_mask``; ``frames`` for the audio stub, ``patches``
+    beside the tokens for the vision stub, whose image positions carry no
+    target and are dropped), as the reference's: the logits in float32
     over ``loss_chunk``-token pieces of the sequence, each piece
     checkpointed (its (B, chunk, V) logits are recomputed in the backward,
     never held across the loss), plus
@@ -418,7 +474,7 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     from torch.utils.checkpoint import checkpoint
     x, aux = forward(params, cfg, batch, dtype=dtype, remat=remat, ops=ops)
     if cfg.frontend == "vision_stub":
-        raise NotImplementedError(f"{cfg.name}: vision_stub front end")
+        x = x[:, cfg.num_patches:]
     targets = batch["targets"]
     B, S, _ = x.shape
     mask = batch.get("loss_mask")
@@ -503,7 +559,7 @@ def decode_step_paged(params: Params, cfg: ModelConfig,
     ``active`` (S,) bool gates every state write: inactive slots neither
     write KV pages nor advance recurrent state. Returns (logits (S,V),
     caches updated in place)."""
-    x = embed_inputs(params, cfg, inputs, dtype)
+    x = _gated(params, cfg, embed_inputs(params, cfg, inputs, dtype))
 
     def layer_fn(lp, kind, ffn, ce, xx):
         def mixer(lp_, kind_, h):
@@ -535,7 +591,7 @@ def verify_step_paged(params: Params, cfg: ModelConfig,
     after every proposed token, stacked on a leading T axis (the
     reference's ``_verify_recurrent``), for ``select_verified``.
     Returns (logits (S, T, V) at every proposed position, caches)."""
-    x = embed_inputs(params, cfg, inputs, dtype)
+    x = _gated(params, cfg, embed_inputs(params, cfg, inputs, dtype))
 
     def layer_fn(lp, kind, ffn, ce, xx):
         def mixer(lp_, kind_, h):
@@ -577,7 +633,7 @@ def prefill_chunk(params: Params, cfg: ModelConfig,
     KV goes into the slot's pages and recurrent state advances in the
     slot's row, so admission interleaves with fused decode steps without
     touching any other slot. Returns (last-token logits (1, V), caches)."""
-    x = embed_inputs(params, cfg, inputs, dtype)
+    x = _gated(params, cfg, embed_inputs(params, cfg, inputs, dtype))
 
     def layer_fn(lp, kind, ffn, ce, xx):
         def mixer(lp_, kind_, h):

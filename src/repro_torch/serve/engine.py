@@ -14,9 +14,10 @@ reference's) calls:
     (``spill_page`` / ``restore_pages``), whose blobs keep the
     reference's layout (``serve/state.py``);
   * ``set_sampling``: a request's sampling rows (``serve/sampling.py``);
-  * ``insert`` (whole-prompt prefill at the exact prompt length, its ring
-    cache scattered into the slot's pages and its recurrent/SSM state into
-    the slot's row), ``insert_chunk`` (one prompt chunk written through
+  * ``insert`` (whole-prompt prefill at the exact prompt length, a VLM's
+    image patches before the prompt, its ring cache scattered into the
+    slot's pages and its recurrent/SSM state into the slot's row),
+    ``insert_chunk`` (one prompt chunk written through
     the slot's page row and state row), ``decode`` (one token for every
     slot, ``active`` gating every write) and ``verify`` (one forward over
     each slot's last token plus K drafts, acceptance of the longest prefix
@@ -80,7 +81,6 @@ class InferenceEngine:
             raise ValueError(f"{cfg.name} has no decode path")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
-        tfm.layer_plan(cfg)            # raises for layers not ported yet
         self.cfg = cfg
         self.device = resolve_device(device)
         self.ops = ops
@@ -281,13 +281,23 @@ class InferenceEngine:
         return state
 
     # -- the steps ---------------------------------------------------------
-    def _tokens(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        if set(inputs) != {"tokens"}:
-            raise NotImplementedError(
-                f"inputs {sorted(inputs)}: only token prompts are ported")
-        return {"tokens": torch.as_tensor(np.asarray(inputs["tokens"]),
-                                          dtype=torch.int32,
-                                          device=self.device)}
+    def _inputs(self, inputs: Dict[str, Any],
+                patches: bool = True) -> Dict[str, torch.Tensor]:
+        """A request's inputs on the device: ``tokens`` int32, and (with
+        ``patches``, the vision stub's whole-prompt insert) ``patches``
+        float32, which ``embed_inputs`` casts to the activation dtype."""
+        allowed = {"tokens", "patches"} if patches else {"tokens"}
+        if "tokens" not in inputs or set(inputs) - allowed:
+            raise ValueError(f"inputs {sorted(inputs)}: this step takes "
+                             f"{sorted(allowed)}")
+        out = {"tokens": torch.as_tensor(np.asarray(inputs["tokens"]),
+                                         dtype=torch.int32,
+                                         device=self.device)}
+        if "patches" in inputs:
+            out["patches"] = torch.as_tensor(
+                np.asarray(inputs["patches"]), dtype=torch.float32,
+                device=self.device)
+        return out
 
     def _flags(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -336,16 +346,18 @@ class InferenceEngine:
     def insert(self, state: InferenceState, inputs: Dict[str, Any],
                slot: int):
         """Prefill ONE request (tokens (1, L), exact length, so recurrent
-        and SSM state is exact) into slot ``slot``, whose page row must
-        already be installed (``assign_pages``): KV rings scatter into its
-        pages, recurrent/SSM state into its row. Returns (state, first
-        token (1,))."""
-        inputs = self._tokens(inputs)
+        and SSM state is exact; a VLM's ``patches`` (1, P, Fd) before
+        them) into slot ``slot``, whose page row must already be installed
+        (``assign_pages``): KV rings scatter into its pages, recurrent/SSM
+        state into its row; the slot's position is then P + L, and the
+        first token is drawn there. Returns (state, first token (1,))."""
+        inputs = self._inputs(inputs)
         with profiler.annotate("serve.insert"), torch.inference_mode():
             logits, cache_one = tfm.prefill(state.params, self.cfg, inputs,
                                             max_len=self.max_len,
                                             dtype=self.dtype, ops=self.ops)
-            total = inputs["tokens"].shape[1]
+            total = inputs["tokens"].shape[1] + (
+                inputs["patches"].shape[1] if "patches" in inputs else 0)
             tok = self._sample_one(state, logits, slot, total)
             tfm.scatter_prefill_paged(self.cfg, state.cache, cache_one,
                                       state.page_table[slot], slot)
@@ -355,12 +367,13 @@ class InferenceEngine:
 
     def insert_chunk(self, state: InferenceState, inputs: Dict[str, Any],
                      slot: int, pos_start: int):
-        """Insert ONE prompt chunk (tokens (1, C)) starting at absolute
+        """Insert ONE prompt chunk (tokens (1, C); never patches: the
+        scheduler admits a request with patches whole) starting at absolute
         position ``pos_start`` into slot ``slot``'s pages and state row.
         Returns (state, token (1,)), meaningful only for a prompt's final
         chunk, where ``pos_start + C`` is the position a whole-prompt
         insert would draw at: the draw does not depend on chunking."""
-        inputs = self._tokens(inputs)
+        inputs = self._inputs(inputs, patches=False)
         with profiler.annotate("serve.insert_chunk"), torch.inference_mode():
             logits, _ = tfm.prefill_chunk(
                 state.params, self.cfg, inputs, state.cache,

@@ -31,9 +31,10 @@ their plain versions (``kernels/*/ops.py``). ``Engine.for_lm`` binds LM
 training (``transformer.lm_loss``): the per-layer param tree is kept flat,
 keyed by '/'-joined paths (``convert.flatten``) with a leading replica
 axis of 1, and rebuilt as views inside the loss; token batches stay
-integer. On the card the causal conv1d, SSD-chunk and local-attention
-kernels run the forward, and autograd through their plain versions the
-backward.
+integer, and the front ends' ``frames`` and ``patches`` stay float32
+(``transformer.embed_inputs`` casts them, as the reference does). On the
+card the causal conv1d, SSD-chunk and local-attention kernels run the
+forward, and autograd through their plain versions the backward.
 """
 from __future__ import annotations
 
@@ -146,19 +147,21 @@ class Engine:
     def for_lm(cls, cfg: ModelConfig, tc: TrainConfig, *,
                accum_steps: Optional[int] = None, donate: bool = True,
                device: str | torch.device = "cuda",
-               dtype: torch.dtype = torch.bfloat16) -> "Engine":
-        """Token-LM engine for any LM config the port runs: the loss is
+               dtype: torch.dtype = torch.bfloat16,
+               ops: tfm.KernelOps = tfm.KERNELS) -> "Engine":
+        """LM engine for any LM config: the loss is
         ``transformer.lm_loss`` in ``dtype`` activations, with block remat
         unless ``tc.remat`` is ``"none"``; ``eval_fn`` returns the loss and
-        its metrics."""
+        its metrics. ``ops=transformer.PLAIN`` serves only to hold the
+        kernels' run against the plain one."""
         remat = tc.remat != "none"
-        like = tfm.model_params(cfg, lambda *a: None)   # raises if not ported
+        like = tfm.model_params(cfg, lambda *a: None)
 
         def lm(p, b):
             tree = unflatten({k: v.squeeze(0) for k, v in p.items()}, like)
             loss, mets = tfm.lm_loss(tree, cfg, {k: v[0] for k, v in
                                                  b.items()},
-                                     dtype=dtype, remat=remat)
+                                     dtype=dtype, remat=remat, ops=ops)
             return loss[None], {k: v[None] for k, v in mets.items()}
 
         def lm_eval(p, b):
@@ -194,7 +197,8 @@ class Engine:
 
     def place_batch(self, batch: Dict[str, Any]) -> Batch:
         """A host batch as contiguous tensors on the device, float32 but
-        for integer leaves (tokens, targets), which keep their dtype, with
+        for integer leaves (tokens, targets), which keep their dtype
+        (``frames``, ``patches`` and ``loss_mask`` are float32), with
         the leading replica axis (added in single mode): the loader's
         placement hook."""
         out = {k: _place(v, self.device) for k, v in batch.items()}

@@ -12,6 +12,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.configs import list_configs as j_list_configs  # noqa: E402
 from repro.core import domst as jdomst  # noqa: E402
 from repro.core.partitioner import partition_pixels as j_partition  # noqa: E402
 from repro.core.pixcon import pixcon_block as j_pixcon_block  # noqa: E402
@@ -44,9 +45,10 @@ def _np_tree(tree):
 
 def test_configs_match_reference():
     assert list_configs() == sorted(VARIANTS + (
-        "deepseek-moe-16b", "gemma2-2b", "gemma2-2b-localonly", "llama3.2-3b",
-        "mamba2-130m", "olmo-1b", "qwen2-1.5b", "qwen3-moe-30b-a3b",
-        "recurrentgemma-2b"))
+        "deepseek-moe-16b", "gemma2-2b", "gemma2-2b-localonly",
+        "hubert-xlarge", "internvl2-2b", "llama3.2-3b", "mamba2-130m",
+        "olmo-1b", "qwen2-1.5b", "qwen3-moe-30b-a3b", "recurrentgemma-2b"))
+    assert sorted(list_configs()) == sorted(j_list_configs())
     for name in VARIANTS:
         j, t = j_get_config(name), get_config(name)
         assert (t.name, t.family, t.causal) == (j.name, j.family, j.causal)

@@ -213,6 +213,33 @@ def test_paged_attn_kernel_matches_plain(dev, dtype, atol, T, Hq, Hkv, D, ps,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("case,T,lens", [
+    ("decode", 1, [784, 782, 780, 778]),
+    ("verify", 4, [784, 782, 780, 778]),
+    # every assigned row's last page partly filled, and a slot with none
+    ("partial_page", 1, [785, 0, 777, 769]),
+])
+def test_paged_attn_internvl2_shapes(dev, dtype, atol, case, T, lens):
+    """internvl2-2b's decode and verify: 16 query heads on 8 KV heads
+    (G=2) at D=128, 16-token pages, rows of 50 pages (256 patches and
+    512 text tokens plus 32 new), at the existing tolerances."""
+    from repro_torch.kernels.paged_attn import ops
+    from repro_torch.kernels.paged_attn.ref import paged_attention_ref
+    g = torch.Generator().manual_seed(sum(lens) + T)
+    a = _paged_case(g, dev, getattr(torch, dtype), 4, T, 16, 8, 128, 16, 50,
+                    lens)
+    before = ops.paged_attention_fused.launches
+    out = ops.paged_attention_fused(**a, window=0, softcap=0.0)
+    torch.cuda.synchronize()
+    assert ops.paged_attention_fused.launches == before + 1
+    ref = paged_attention_ref(**a, window=0, softcap=0.0)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    if 0 in lens:
+        assert not out[lens.index(0)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("T,Hq,Hkv,D,ps,window,softcap,n,pps", [
     # G=10 at D=256 (recurrentgemma-2b's local layers), decode: splits of
     # 2 pages, the first ones wholly outside slot 3's window (all dead)

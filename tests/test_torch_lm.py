@@ -289,8 +289,29 @@ def test_prefill_chunk_decode_verify_match_reference(monkeypatch):
     assert paged_attention_fused.launches == launches   # CPU: plain version
 
 
-def test_unported_kinds_raise():
-    jcfg, cfg = _cfgs()
-    for over in (dict(frontend="vision_stub"),):
-        with pytest.raises(NotImplementedError):
-            tfm.init(cfg.replace(**over), torch.Generator().manual_seed(0))
+def _shapes(t):
+    if isinstance(t, dict):
+        return {k: _shapes(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_shapes(v) for v in t]
+    return tuple(t.shape)
+
+
+@pytest.mark.parametrize("over", [
+    dict(frontend="vision_stub", frontend_dim=64, num_patches=8),
+    dict(frontend="audio_stub", frontend_dim=32),
+    dict(contribution_gate=True),
+    dict(frontend="vision_stub", frontend_dim=64, num_patches=8,
+         contribution_gate=True),
+], ids=["vision", "audio", "gate", "vision-gate"])
+def test_front_ends_and_gate_init_as_the_reference(over):
+    """``init`` with a front end or the contribution gate gives the
+    reference's tree (after ``params_from_jax``): its ``frontend`` and
+    ``gate`` subtrees beside the embedding, the same leaves and shapes."""
+    jcfg, cfg = _cfgs(**over)
+    ref = params_from_jax(jax.tree.map(np.asarray,
+                                       jtfm.init(jcfg, jax.random.key(0))))
+    port = tfm.init(cfg, torch.Generator().manual_seed(0))
+    assert _shapes(port) == _shapes(ref)
+    assert ("frontend" in port) == ("frontend" in over)
+    assert ("gate" in port) == over.get("contribution_gate", False)

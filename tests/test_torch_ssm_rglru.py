@@ -235,5 +235,7 @@ def test_convert_carries_every_leaf(arch):
     n_got += sum(t.numel() for k in ("embed", "final_norm")
                  for t in flatten(got[k]).values())
     assert n_got == n_ref                      # nothing dropped
-    with pytest.raises(NotImplementedError, match="gate"):
-        params_from_jax(dict(tree, gate={"w": np.zeros(2, np.float32)}))
+    with pytest.raises(ValueError, match="mystery"):
+        params_from_jax(dict(tree, mystery={"w": np.zeros(2, np.float32)}))
+    gated = params_from_jax(dict(tree, gate={"w1": np.ones(2, np.float32)}))
+    assert torch.equal(gated["gate"]["w1"], torch.ones(2))

@@ -431,9 +431,11 @@ def test_train_cli_sequential_mode_and_its_refusals(capsys):
     with pytest.raises(SystemExit, match="not supported with --mode sequential"):
         ttrain.main(["--arch", "domst", "--mode", "sequential", "--device",
                      "cpu", "--ckpt", "x.npz"])
-    # a front end is not ported; an LM without one trains
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        ttrain.main(["--arch", "hubert-xlarge", "--device", "cpu"])
+    # the LM mode: the audio encoder and a decoder each train a step
+    enc = ttrain.main(["--arch", "hubert-xlarge", "--smoke", "--steps", "1",
+                       "--batch-size", "2", "--seq-len", "8", "--device",
+                       "cpu"])
+    assert enc["steps"] == 1 and np.isfinite(enc["first_loss"])
     lm = ttrain.main(["--arch", "qwen2-1.5b", "--smoke", "--steps", "1",
                       "--batch-size", "2", "--seq-len", "8", "--device",
                       "cpu"])

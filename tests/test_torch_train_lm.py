@@ -172,10 +172,19 @@ def test_token_batches_bit_equal(arch):
             np.testing.assert_array_equal(ts.host_batch(step)[k], v)
 
 
-def test_front_end_batches_raise():
-    cfg = get_config("qwen2-1.5b").replace(family="audio")
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        tokens.synthetic_token_batch(cfg, 1, 4)
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-2b"])
+def test_front_end_batches_raise(arch):
+    """The front ends' batches, once refused, now drawn as the
+    reference's to the bit: frames, unit targets and the 8% loss mask;
+    patches before the text's token pairs."""
+    jcfg, cfg = _cfgs(arch)
+    for seed in (0, 11):
+        a = jtokens.synthetic_token_batch(jcfg, 2, 20, seed=seed)
+        b = tokens.synthetic_token_batch(cfg, 2, 20, seed=seed)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 # ---------------------------------------------------------------------------
@@ -283,11 +292,12 @@ ENGINE_CASES = [("qwen2-1.5b", 1), ("qwen2-1.5b", 2), ("mamba2-130m", 2),
                 ("qwen3-moe-30b-a3b", 1)]
 
 
-def _engine_steps(arch, accum, **tc_kw):
-    """Three steps of the reference's engine and the port's on the same
-    batches, the step metrics held within LOSS_REL; returns (the port's
-    params, mu, nu in the reference's layout, and the reference's)."""
-    jcfg, cfg = _cfgs(arch)
+def _engine_steps(arch, accum, steps=3, cfgs=None, **tc_kw):
+    """``steps`` steps of the reference's engine and the port's on the
+    same batches (``cfgs``: the two configs, if not ``_cfgs(arch)``), the
+    step metrics held within LOSS_REL; returns (the port's params, mu, nu
+    in the reference's layout, and the reference's)."""
+    jcfg, cfg = cfgs or _cfgs(arch)
     jtc, tc = _tcs(**tc_kw)
     jtree = _jparams(jcfg)
     jeng = _ref_engine(jcfg, jtc, accum)
@@ -296,7 +306,7 @@ def _engine_steps(arch, accum, **tc_kw):
     eng = Engine.for_lm(cfg, tc, accum_steps=accum, device="cpu",
                         dtype=torch.float32)
     state = eng.init_state(params_from_jax(jtree))
-    for step in range(3):
+    for step in range(steps):
         host = _batch(cfg, seed=step, b=4, s=24)
         jstate, jm = jeng.step(jstate, jeng.place_batch(host))
         state, m = eng.step(state, eng.place_batch(host))
@@ -304,8 +314,8 @@ def _engine_steps(arch, accum, **tc_kw):
         for k in ("loss", "ce", "grad_norm", "lr"):
             assert abs(float(m[k]) - float(jm[k])) <= \
                 LOSS_REL * abs(float(jm[k])), (step, k, m[k], jm[k])
-    assert int(state.step) == int(jstate.step) == 3
-    assert int(state.opt_state.step[0]) == int(jstate.opt_state.step) == 3
+    assert int(state.step) == int(jstate.step) == steps
+    assert int(state.opt_state.step[0]) == int(jstate.opt_state.step) == steps
     return [(_state_ref_layout(eng, got, cfg), jax.tree.map(np.asarray, want))
             for got, want in ((state.params, jstate.params),
                               (state.opt_state.mu, jstate.opt_state.mu),
@@ -483,10 +493,21 @@ def test_train_cli_smoke_and_serve_from_its_checkpoint(tmp_path, capsys,
                         "cpu", "--resume", ckpt])["steps"] == 4
 
 
-def test_train_cli_refuses_front_end_archs():
-    for arch in ("hubert-xlarge", "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="Queue A"):
-            ttrain.main(["--arch", arch, "--smoke", "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-2b"])
+def test_train_cli_refuses_front_end_archs(arch, capsys):
+    """The front-end archs train through the CLI (``--seq-len`` counts
+    internvl2's 8 smoke patches too); what the CLI refuses is a
+    ``--seq-len`` that leaves no text after the patches."""
+    res = ttrain.main(["--arch", arch, "--smoke", "--steps", "2",
+                       "--batch-size", "2", "--seq-len", "12", "--device",
+                       "cpu"])
+    assert res["steps"] == 2 and res["arch"] == f"{arch}-smoke"
+    assert np.isfinite([res["first_loss"], res["last_loss"]]).all()
+    assert res["tokens_per_step"] == 24
+    if arch == "internvl2-2b":
+        with pytest.raises(SystemExit, match="leaves no text"):
+            ttrain.main(["--arch", arch, "--smoke", "--seq-len", "8",
+                         "--device", "cpu"])
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-130m"])

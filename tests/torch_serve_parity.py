@@ -124,11 +124,13 @@ def serve_port(arch, tree, prompt_list, *, gen=GEN, prefill_chunk=0,
         drafter=NgramDrafter() if spec_k else None)
 
 
-def first_decode_logits_bf16(arch, tree):
+def first_decode_logits_bf16(arch, tree, patches=None, jcfg_cfg=None):
     """Both slots admitted by whole-prompt prefill in bfloat16 (the first
-    prompt longer than the window), then one fused decode step, in both
-    frameworks. Returns (port logits, reference logits) as float32."""
-    jcfg, cfg = cfgs(arch)
+    prompt longer than the window; with ``patches``, a VLM's (P, Fd)
+    image per slot before its prompt), then one fused decode step, in
+    both frameworks. ``jcfg_cfg``: the two configs, if not ``cfgs(arch)``.
+    Returns (port logits, reference logits) as float32."""
+    jcfg, cfg = jcfg_cfg or cfgs(arch)
     prompt_list = prompts(cfg.vocab_size)[:SLOTS]
     table = np.arange(SLOTS * MAX_LEN // PS, dtype=np.int32).reshape(SLOTS, -1)
     jp = jax.tree.map(jnp.asarray, tree)
@@ -136,18 +138,24 @@ def first_decode_logits_bf16(arch, tree):
     n_pages = table.size
     jc = jtfm.init_paged_cache(jcfg, SLOTS, n_pages, PS, dtype=jnp.bfloat16)
     tc = tfm.init_paged_cache(cfg, SLOTS, n_pages, PS, dtype=torch.bfloat16)
-    last = []
+    last, pos = [], []
     for s, p in enumerate(prompt_list):
-        jl, ring = jtfm.prefill(jp, jcfg, {"tokens": jnp.asarray(p[None])},
+        inputs = {"tokens": p[None]}
+        if patches is not None:
+            inputs["patches"] = patches[s][None]
+        jl, ring = jtfm.prefill(jp, jcfg, {k: jnp.asarray(v) for k, v in
+                                           inputs.items()},
                                 MAX_LEN, dtype=jnp.bfloat16)
         jc = jtfm.scatter_prefill_paged(jcfg, jc, ring,
                                         jnp.asarray(table[s]), s)
-        _, tring = tfm.prefill(tp, cfg, {"tokens": torch.tensor(p[None])},
+        _, tring = tfm.prefill(tp, cfg, {k: torch.tensor(v) for k, v in
+                                         inputs.items()},
                                MAX_LEN, dtype=torch.bfloat16)
         tfm.scatter_prefill_paged(cfg, tc, tring, torch.tensor(table[s]), s)
         last.append(int(np.argmax(np.asarray(jl)[0])))
+        pos.append(sum(v.shape[1] for v in inputs.values()))
     toks = np.array(last, np.int32)[:, None]
-    pos = np.array([len(p) for p in prompt_list], np.int32)
+    pos = np.array(pos, np.int32)
     act = np.ones(SLOTS, bool)
     jl, _ = jtfm.decode_step_paged(jp, jcfg, {"tokens": jnp.asarray(toks)},
                                    jc, jnp.asarray(pos), jnp.asarray(table),
@@ -161,14 +169,16 @@ def first_decode_logits_bf16(arch, tree):
 # ---------------------------------------------------------------------------
 # Any queue, any options, through both packages
 # ---------------------------------------------------------------------------
-def spec(prompt, max_new, **sampling):
-    """One request of a queue: prompt, budget and SamplingParams fields."""
+def spec(prompt, max_new, extras=None, **sampling):
+    """One request of a queue: prompt, budget, the request's ``extras``
+    (a VLM's ``patches``) and SamplingParams fields."""
     return {"prompt": np.asarray(prompt, np.int32), "max_new": int(max_new),
-            "sampling": sampling}
+            "extras": dict(extras or {}), "sampling": sampling}
 
 
 def _requests(specs, request, params):
     return [request(rid=i, max_new=q["max_new"], prompt=q["prompt"].copy(),
+                    extras={k: np.array(v) for k, v in q["extras"].items()},
                     sampling=params(**q["sampling"]))
             for i, q in enumerate(specs)]
 
