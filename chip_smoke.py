@@ -259,12 +259,29 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    non-zero (``frontend`` included), one step timed and one profiled,
    and the train CLI at 2 layers in float32 with the kernels' ops and
    the plain ones: losses within 1e-5;
-14. one JSON line listing every ported kernel with its error, times, bound
+14. distribution on a 1x1 mesh (``distribution_main_path``): a world-1
+   NCCL group started by ``launch.mesh.make_host_mesh()`` and destroyed
+   at the phase's end; the stacked Dom-ST engine (23 watersheds, float32)
+   for one epoch of 9 steps and the forecast of the 74 held-out days,
+   then mamba2-130m at full width and depth (8 x 1,024, bf16, block
+   remat) with the FSDP rule variant for 3 steps, each on the mesh and on
+   one device from the same state: launches on the mesh as phases 3, 4
+   and 12 count them (a Dom-ST step 1 Pix-Con and 60 LSTM, a forecast 74
+   and 4,440, a mamba2 step 48 conv1d and 48 SSD chunk), Dom-ST's params,
+   moments, losses and forecast within 1e-6 of their scale of the
+   one-device run's, mamba2's bf16 losses finite and its losses, params
+   and moments within 1e-6 of their scale of the one-device run's (the
+   1x1 mesh runs the same operations), the step times on and off the
+   mesh printed; phase 2 also times the
+   library calls at the training shapes (``library_at_training_shapes``:
+   ``torch.lstm_cell`` at 23 x 32 rows, ``F.conv1d(groups=C)`` at both
+   LM training shapes, SDPA with a band mask at recurrentgemma-2b's);
+15. one JSON line listing every ported kernel with its error, times, bound
    and launches (by model and mode; Pix-Con and the LSTM step by path,
-   forecast and training, with their times at the training shapes; conv1d,
-   the SSD chunk and local attention with their training shapes), then
-   the line with the card's name and power limit;
-15. the last line, ``{"ok": true, "device": {...}}``.
+   forecast and training, on and off the mesh, with their times at the
+   training shapes; conv1d, the SSD chunk and local attention with their
+   training shapes), then the line with the card's name and power limit;
+16. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card. ``torch.compile`` (the flex_attention yardstick)
 keeps its caches under ``build/`` and compiles in this process. Without CUDA, or run from a directory that does not
@@ -1940,6 +1957,102 @@ def check_local_attn(g, dev) -> dict:
                        "mask; SDPA with a boolean band mask at the shapes "
                        "without a softcap, in by_shape",
             "by_shape": shapes}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, training shapes: the library calls beside the kernels
+# ---------------------------------------------------------------------------
+def library_at_training_shapes(dev, kernels: list) -> None:
+    """The library call's time at the training shapes, timed in turns with
+    the kernel, into each kernel's ``training_library`` entry: the LSTM
+    step at R x B = 23 x 32 rows (``torch.lstm_cell``, one weight set; the
+    kernel at R=23, B=32, both layers' D); the conv1d at mamba2-130m's
+    (B=8, S=1,024, C=1,792, SiLU) and recurrentgemma-2b's (B=2, S=2,560,
+    C=2,560) layers in bf16 (``F.conv1d(groups=C)`` on the left-padded
+    input, SiLU timed apart); local attention at recurrentgemma-2b's B=2,
+    S=2,560 (10 query heads on 1, D=256, window 2,048) in bf16 (SDPA with a
+    boolean band mask, ``enable_gqa``). Inputs from a generator of their
+    own, so phase 2's shared draws stay as they were."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv1d.ops import causal_conv1d
+    from repro_torch.kernels.local_attn.ops import local_attention_fused
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell_fused
+    g = torch.Generator().manual_seed(4321)
+    by = {k["name"]: k for k in kernels}
+    rows = []
+    for D in (128, 64):
+        H, R, B = 64, WATERSHEDS, TRAIN_BATCH
+        a = lstm_inputs(g, dev, R, B, D, H)
+        one = lstm_inputs(g, dev, 1, R * B, D, H)
+        w_ih = one["wx"][0].reshape(D, 4 * H).t().contiguous()
+        w_hh = one["wh"][0].reshape(H, 4 * H).t().contiguous()
+        b_ih = one["b"][0].reshape(4 * H).contiguous()
+        b_hh = torch.zeros(4 * H, device=dev)
+        b_hh[H:2 * H] = 1.0
+        x1, h1, c1 = one["x"][0], one["h"][0], one["c"][0]
+        lh, lc = torch.lstm_cell(x1, (h1, c1), w_ih, w_hh, b_ih, b_hh)
+        kh, kc = lstm_cell_fused(**one)
+        e = max(max_err(lh, kh[0]), max_err(lc, kc[0]))
+        check(e <= ATOL_KERNEL, f"torch.lstm_cell at {R * B} rows: {e}")
+        kernel_t, lib_t = time_in_turns([
+            lambda: lstm_cell_fused(**a),
+            lambda: torch.lstm_cell(x1, (h1, c1), w_ih, w_hh, b_ih, b_hh)])
+        rows.append({"D": D, "ms": kernel_t, "library_ms": lib_t,
+                     "library_vs_kernel_err": e})
+        print(f"  lstm_cell training R=23 B=32 D={D}: kernel "
+              f"{kernel_t * 1e3:.2f} us, torch.lstm_cell at {R * B} rows "
+              f"{lib_t * 1e3:.2f} us (agrees to {e:.1e})")
+    by["lstm_cell"]["training_library"] = {
+        "library": "torch.lstm_cell at R*B = 736 rows, one weight set",
+        "ms": sum(r["ms"] for r in rows) / 2,
+        "library_ms": sum(r["library_ms"] for r in rows) / 2, "by_layer": rows}
+    rows = []
+    for name, B, S, C, act in (("mamba2-130m", 8, 1024, 1792, "silu"),
+                               ("recurrentgemma-2b", 2, 2560, 2560, "none")):
+        a = conv_args(g, dev, torch.bfloat16, B, S, C, 4, False)
+        xp = torch.cat([torch.zeros_like(a["x"][:, :3]), a["x"]],
+                       1).transpose(1, 2).contiguous()
+        wl = a["w"].t().contiguous()[:, None, :]
+        lib = lambda: F.conv1d(xp, wl, a["b"], groups=C)  # noqa: E731
+        ms, lib_ms, lib_silu_ms = time_in_turns(
+            [lambda: causal_conv1d(**a, activation=act), lib,
+             lambda: F.silu(lib())])
+        e = max_err(lib().transpose(1, 2).float(),
+                    causal_conv1d(**a, activation="none")[0].float())
+        check(e <= ATOL_BF16, f"F.conv1d disagrees at {name}'s shape: {e}")
+        silu_ms = lib_silu_ms - lib_ms if act == "silu" else 0.0
+        rows.append({"arch": name, "B": B, "S": S, "C": C, "activation": act,
+                     "ms": ms, "library_ms": lib_ms,
+                     "library_silu_ms": silu_ms, "library_vs_kernel_err": e})
+        print(f"  conv1d training {name} bf16 B={B} S={S} C={C} {act}: "
+              f"kernel {ms * 1e3:.2f} us, F.conv1d {lib_ms * 1e3:.2f} us "
+              f"(+ SiLU {silu_ms * 1e3:.2f} us; agrees to {e:.1e})")
+    by["conv1d"]["training_library"] = {
+        "library": "F.conv1d(groups=C) on the left-padded input, SiLU "
+                   "timed apart", "by_shape": rows}
+    B, S, Hq, Hkv, D, window = 2, 2560, 10, 1, 256, 2048
+    q, k, v = (rn(g, dev, B, S, H, D).to(torch.bfloat16)
+               for H in (Hq, Hkv, Hkv))
+    kw = dict(window=window, causal=True, softcap=0.0)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = band_mask(S, window, True, dev)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    ms, lib_ms = time_in_turns(
+        [lambda: local_attention_fused(q, k, v, **kw), lib], rounds=3,
+        iters=20)
+    e = max_err(lib().transpose(1, 2).float(),
+                local_attention_fused(q, k, v, **kw).float())
+    check(e <= ATOL_BF16, f"SDPA disagrees at recurrentgemma's shape: {e}")
+    print(f"  local_attn training recurrentgemma-2b bf16 B=2 S=2560: kernel "
+          f"{ms * 1e3:.2f} us, SDPA (band mask) {lib_ms * 1e3:.2f} us "
+          f"(agrees to {e:.1e})")
+    by["local_attn"]["training_library"] = {
+        "library": "SDPA with a boolean band mask, enable_gqa",
+        "shape": "bf16 recurrentgemma-2b B=2 S=2560 Hq=10 Hkv=1 D=256 "
+                 "window=2048", "ms": ms, "library_ms": lib_ms,
+        "library_vs_kernel_err": e}
 
 
 # ---------------------------------------------------------------------------
@@ -3954,6 +4067,234 @@ def frontend_main_path(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: distribution on a 1x1 mesh
+# ---------------------------------------------------------------------------
+# One epoch of the stacked Dom-ST run (9 steps) and the forecast, then
+# mamba2-130m at full width and depth with the FSDP rule variant, each on
+# the host mesh (a world-1 NCCL group started by ``make_host_mesh``) and
+# on one device from the same state. Launches as phases 3, 4 and 12 count
+# them: a Dom-ST step 1 Pix-Con and 2 x 30 LSTM, a forecast of the 74
+# held-out days 74 and 4,440; a mamba2-130m step 48 conv1d and 48 SSD
+# chunk.
+MESH_DOMST_STEPS, MESH_REL = 9, 1e-6
+MESH_LM = {"arch": "mamba2-130m", "batch": 8, "seq": 1024, "steps": 3}
+
+
+def _state_rel_err(a, b) -> tuple[float, str]:
+    """The largest leaf error of host state ``a`` against ``b`` (params and
+    both moments), over the leaf's largest |value|."""
+    worst, where = 0.0, ""
+    for tree in ("params", "mu", "nu"):
+        ta = a.params if tree == "params" else getattr(a.opt_state, tree)
+        tb = b.params if tree == "params" else getattr(b.opt_state, tree)
+        for k, v in tb.items():
+            scale = float(v.abs().max()) or 1.0
+            e = float((ta[k] - v).abs().max()) / scale
+            if e > worst:
+                worst, where = e, f"{tree}/{k}"
+    return worst, where
+
+
+def distribution_main_path(dev) -> dict:
+    """Phase 14. The stacked Dom-ST engine (23 watersheds, float32) for
+    ``MESH_DOMST_STEPS`` steps and the ``Forecaster`` on the 74 held-out
+    days, then ``Engine.for_lm`` on mamba2-130m (bf16 activations, block
+    remat, ``fsdp=True``) for 3 steps: each on the 1x1 mesh and on one
+    device from the same state, the launch counts set to 0 just before
+    each run on the mesh and read just after. Dom-ST's params and moments
+    and the forecast, and mamba2's losses, params and moments, within
+    ``MESH_REL`` of their scale of the one-device run's; mamba2's losses
+    finite. Step
+    times on and off the mesh are printed: the mesh's cost is DTensor's
+    dispatch on the host."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.convert import flatten, unflatten
+    from repro_torch.core import domst
+    from repro_torch.data.pipeline import (
+        InputPipeline, StackedSource, make_domst_windows, stacked_test_batch,
+        train_split)
+    from repro_torch.data.tokens import TokenSource
+    from repro_torch.distributed.sharding import full_host
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.forecast import Forecaster
+    from repro_torch.train import Engine
+
+    mesh = make_host_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and tuple(mesh.shape) == (1, 1),
+          f"host mesh: backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}, shape {tuple(mesh.shape)}")
+    print(f"  host mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}, "
+          f"{dist.get_backend()} world of {dist.get_world_size()}")
+    out = {}
+    try:
+        # -- Dom-ST stacked training ------------------------------------
+        cfg = get_config("domst")
+        windows = make_domst_windows(WATERSHEDS, DAYS)
+        ip = InputPipeline([train_split(w) for w in windows],
+                           batch_size=TRAIN_BATCH, seed=SEED)
+        source = StackedSource(ip)
+        tc = TrainConfig(learning_rate=1e-3, total_steps=100,
+                         warmup_steps=50, seed=SEED)
+        init = domst.init(cfg, torch.Generator().manual_seed(SEED),
+                          WATERSHEDS)
+        host_batches = [source.host_batch(i) for i in range(MESH_DOMST_STEPS)]
+        runs = {}
+        for name, m in (("one device", None), ("1x1 mesh", mesh)):
+            eng = Engine.for_domst(cfg, tc, stacked=True, device=dev, mesh=m)
+            state = eng.init_state({k: v.clone() for k, v in init.items()})
+            batches = [eng.place_batch(b) for b in host_batches]
+            torch.cuda.synchronize()
+            reset_launches()
+            losses, step_s = [], []
+            for b in batches:
+                t = time.perf_counter()
+                state, mets = eng.step(state, b)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                losses.append(full_host(mets["loss"]))
+            runs[name] = {"host": eng.host_state(state), "losses": losses,
+                          "step_s": step_s, "launches": read_launches()}
+        want = {n: 0 for n in runs["1x1 mesh"]["launches"]}
+        want.update(pixcon=MESH_DOMST_STEPS, lstm_cell=MESH_DOMST_STEPS
+                    * cfg.domst.lstm_layers * cfg.domst.window_days)
+        for name, r in runs.items():
+            p50 = sorted(r["step_s"][1:])[len(r["step_s"][1:]) // 2]
+            r["step_p50_s"] = p50
+            print(f"  domst stacked, {name}: {MESH_DOMST_STEPS} steps, step "
+                  f"(synchronised) median {p50:.4f} s, first "
+                  f"{r['step_s'][0]:.4f} s; launches {r['launches']}")
+            check(r["launches"] == want,
+                  f"domst {name} launches {r['launches']} != {want}")
+        losses = np.stack(runs["1x1 mesh"]["losses"])
+        check(bool(np.isfinite(losses).all()), "a non-finite loss on the mesh")
+        loss_err = float(np.abs(losses - np.stack(
+            runs["one device"]["losses"])).max() / np.abs(losses).max())
+        err, leaf = _state_rel_err(runs["1x1 mesh"]["host"],
+                                   runs["one device"]["host"])
+        print(f"  domst mesh vs one device after {MESH_DOMST_STEPS} steps: "
+              f"losses within {loss_err:.3e}, worst leaf {leaf} "
+              f"{err:.3e} of its scale")
+        check(loss_err <= MESH_REL and err <= MESH_REL,
+              f"domst on the mesh: losses {loss_err}, {leaf} {err} > "
+              f"{MESH_REL}")
+        out["domst training"] = {
+            "launches": runs["1x1 mesh"]["launches"],
+            "step_p50_s": {n: r["step_p50_s"] for n, r in runs.items()},
+            "step_s": {n: r["step_s"] for n, r in runs.items()},
+            "loss_rel_err": loss_err, "state_rel_err": err}
+
+        # -- the forecast ------------------------------------------------
+        held = stacked_test_batch(windows)
+        trained = runs["one device"]["host"].params
+        fcs = {}
+        for name, fc in (("one device", Forecaster(cfg, device=dev)),
+                         ("1x1 mesh", Forecaster(cfg, mesh=mesh))):
+            params, placed = fc.place_params(trained), fc.place_batch(held)
+            fc.forecast(params, placed)                  # warm
+            torch.cuda.synchronize()
+            reset_launches()
+            t = time.perf_counter()
+            res = fc.forecast(params, placed)
+            torch.cuda.synchronize()
+            fcs[name] = {"wall_s": time.perf_counter() - t,
+                         "launches": read_launches(),
+                         "res": {k: v.cpu() for k, v in res.items()}}
+        N = held["discharge"].shape[1]
+        want = {n: 0 for n in fcs["1x1 mesh"]["launches"]}
+        want.update(pixcon=N, lstm_cell=N * cfg.domst.lstm_layers
+                    * cfg.domst.window_days)
+        for name, r in fcs.items():
+            print(f"  forecast {WATERSHEDS} x {N} days, {name}: "
+                  f"{r['wall_s']:.4f} s, launches {r['launches']}")
+            check(r["launches"] == want,
+                  f"forecast {name} launches {r['launches']} != {want}")
+        a, b = fcs["1x1 mesh"]["res"], fcs["one device"]["res"]
+        q_err = float((a["qhat"] - b["qhat"]).abs().max()
+                      / b["qhat"].abs().max())
+        nse_err = float((a["nse"] - b["nse"]).abs().max())
+        print(f"  forecast mesh vs one device: qhat within {q_err:.3e} of "
+              f"its scale, NSE within {nse_err:.3e}")
+        check(bool(torch.isfinite(a["qhat"]).all()) and q_err <= MESH_REL
+              and nse_err <= MESH_REL,
+              f"forecast on the mesh: qhat {q_err}, NSE {nse_err}")
+        out["domst forecast"] = {"launches": fcs["1x1 mesh"]["launches"],
+                                 "wall_s": {n: r["wall_s"]
+                                            for n, r in fcs.items()},
+                                 "qhat_rel_err": q_err, "nse_err": nse_err}
+        del runs, fcs
+
+        # -- mamba2-130m, FSDP rules ------------------------------------
+        spec = MESH_LM
+        lcfg = get_config(spec["arch"])
+        ltc = TrainConfig(learning_rate=1e-3, total_steps=spec["steps"],
+                          warmup_steps=1, remat="block", seed=SEED,
+                          fsdp=True)
+        tree = tfm.init(lcfg, torch.Generator(device=dev).manual_seed(SEED))
+        like = tfm.model_params(lcfg, lambda *a: None)
+        src = TokenSource(lcfg, spec["batch"], spec["seq"], seed=SEED)
+        lm = {}
+        for name, m in (("one device", None), ("1x1 mesh", mesh)):
+            eng = Engine.for_lm(lcfg, ltc, device=dev, mesh=m)
+            state = eng.init_state(unflatten(
+                {k: v.clone() for k, v in flatten(tree).items()}, like))
+            batches = [eng.place_batch(src.host_batch(i))
+                       for i in range(spec["steps"])]
+            torch.cuda.synchronize()
+            reset_launches()
+            losses, step_s = [], []
+            for b in batches:
+                t = time.perf_counter()
+                state, mets = eng.step(state, b)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                losses.append(float(full_host(mets["loss"])))
+            lm[name] = {"losses": losses, "step_s": step_s,
+                        "launches": read_launches(),
+                        "host": eng.host_state(state)}
+            del eng, state, batches
+            torch.cuda.empty_cache()
+        want = {n: 0 for n in lm["1x1 mesh"]["launches"]}
+        want.update({k: v * spec["steps"] for k, v in
+                     LM_TRAIN[spec["arch"]]["per_step"].items()})
+        for name, r in lm.items():
+            print(f"  {spec['arch']} fsdp rules, {name}: losses "
+                  f"{np.round(r['losses'], 4).tolist()}, steps "
+                  f"{np.round(r['step_s'], 4).tolist()} s; launches "
+                  f"{r['launches']}")
+            check(r["launches"] == want,
+                  f"{spec['arch']} {name} launches {r['launches']} != {want}")
+            check(bool(np.isfinite(r["losses"]).all()),
+                  f"{spec['arch']} {name}: a non-finite loss {r['losses']}")
+        l_err = max(abs(x - y) / abs(y) for x, y in zip(
+            lm["1x1 mesh"]["losses"], lm["one device"]["losses"]))
+        s_err, leaf = _state_rel_err(lm["1x1 mesh"]["host"],
+                                     lm["one device"]["host"])
+        print(f"  {spec['arch']} mesh vs one device: losses within "
+              f"{l_err:.3e}, worst leaf {leaf} {s_err:.3e} of its scale")
+        check(l_err <= MESH_REL and s_err <= MESH_REL,
+              f"{spec['arch']} on the mesh: losses {l_err}, {leaf} "
+              f"{s_err} > {MESH_REL}")
+        out[f"{spec['arch']} training on a 1x1 mesh"] = {
+            "launches": {"train": lm["1x1 mesh"]["launches"]},
+            "profile": None,
+            "step_s": {n: r["step_s"] for n, r in lm.items()},
+            "losses": {n: r["losses"] for n, r in lm.items()},
+            "loss_rel_err": l_err, "state_rel_err": s_err}
+        del lm
+    finally:
+        dist.destroy_process_group()
+    print("  " + json.dumps({k: {kk: vv for kk, vv in v.items()
+                                 if kk != "profile"}
+                             for k, v in out.items()}))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4053,6 +4394,7 @@ def main() -> int:
                check_conv1d(g, dev), check_ssd_chunk(g, dev),
                check_local_attn(g, dev)]
     check_training_functions(g, dev, kernels)
+    library_at_training_shapes(dev, kernels)
     print(f"[3] main path: Forecaster, domst, 23 watersheds x 400 days (at {time.perf_counter() - T_START:.0f} s)")
     launches, device_ms = main_path(dev)
     print(f"[4] main path: Dom-ST training, domst, 23 watersheds x 400 days, {TRAIN_EPOCHS} epochs (at {time.perf_counter() - T_START:.0f} s)")
@@ -4078,6 +4420,17 @@ def main() -> int:
     by_model.update(lm_training_main_path(dev))
     print(f"[13] main path: front ends and the contribution gate, internvl2-2b served, hubert-xlarge and internvl2-2b trained (at {time.perf_counter() - T_START:.0f} s)")
     by_model.update(frontend_main_path(dev))
+    print(f"[14] distribution on a 1x1 mesh: domst stacked training and the forecast, mamba2-130m with FSDP rules (at {time.perf_counter() - T_START:.0f} s)")
+    mesh = distribution_main_path(dev)
+    for name, path in (("pixcon", "training"), ("lstm_cell", "training")):
+        by_path[name]["mesh_training"] = \
+            mesh["domst training"]["launches"][name]
+        by_path[name]["mesh_forecast"] = \
+            mesh["domst forecast"]["launches"][name]
+        launches[name] += (mesh["domst training"]["launches"][name]
+                           + mesh["domst forecast"]["launches"][name])
+    by_model.update({k: v for k, v in mesh.items()
+                     if not k.startswith("domst")})
     for res in by_model.values():
         for counts in res["launches"].values():
             for name, c in counts.items():
@@ -4100,7 +4453,7 @@ def main() -> int:
             arch: device_ms_per_launch(res["profile"]).get(k["name"])
             for arch, res in by_model.items()
             if arch in k["launches_by_mode"] and res["profile"]}
-    print(f"[14] all phases passed in {time.perf_counter() - T_START:.1f} s")
+    print(f"[15] all phases passed in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

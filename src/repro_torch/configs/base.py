@@ -190,8 +190,8 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """The reference's ``TrainConfig`` less what the port does not read
-    (the compute and param dtypes and FSDP: the port keeps float32 params
-    and moments on one card)."""
+    (the compute and param dtypes: the port keeps float32 params and
+    moments)."""
 
     learning_rate: float = 1e-3
     weight_decay: float = 0.0
@@ -206,6 +206,7 @@ class TrainConfig:
     remat: str = "none"               # none | block | full
     grad_accum: int = 1               # microbatches per step (activation memory / A)
     seed: int = 0
+    fsdp: bool = False                # on a mesh: params and moments' embed over the data axes
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

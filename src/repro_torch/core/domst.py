@@ -1,6 +1,12 @@
 """Dom-ST: the full domain-aware distributed spatiotemporal network (Fig. 1)
 and the paper's baselines.
 
+On a mesh (DTensor params and batch, see ``train/engine.py``) the
+Pix-Con gate with the pixel ranking and each LSTM layer's steps run on
+local blocks through ``local_map`` (``sharding.local_rows``), their small
+weights gathered over "model"; the spatial block's per-head convs run on
+local blocks too, the heads on "model" (``constrain``).
+
 Variants (paper Fig. 3 / Table 1):
   * Singlehead          — 1 CNN head, raster partition, no Pix-Con, no (+P)
   * Singlehead(+P)      — + target-day precipitation into the final layers
@@ -20,9 +26,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import to_port_layout
+from repro_torch.distributed import sharding as shd
 from repro_torch.core.partitioner import partition_pixels, static_partition
+from repro_torch.core.pixcon import param_specs as pixcon_specs
 from repro_torch.core.pixcon import pixcon_block, pixcon_params
+from repro_torch.core.spatial import param_specs as spatial_specs
 from repro_torch.core.spatial import spatial_block, spatial_params
+from repro_torch.core.temporal import param_specs as temporal_specs
 from repro_torch.core.temporal import temporal_block, temporal_params
 from repro_torch.kernels.lstm_cell.ops import lstm_cell_fused
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
@@ -60,6 +70,44 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
             for k, v in leaves.items()}
 
 
+# Logical axes of each batch input without the replica axis; the engine
+# and the forecaster put it in front (see ``batch_specs``).
+BATCH_AXES = {
+    "precip": ("batch", "time", "pixels"),
+    "target_day": ("batch", "pixels"),
+    "dist": ("batch", "pixels"),
+    "discharge": ("batch",),
+}
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical axes of each unstacked leaf, keyed as ``param_shapes``: the
+    reference's ``param_specs`` in the port's layout."""
+    dc = cfg.domst
+    groups = {"spatial": spatial_specs(), "temporal": temporal_specs(dc)}
+    if dc.use_pixcon:
+        groups = {"pixcon": pixcon_specs(), **groups}
+    return {f"{g}/{k}": v for g, leaves in groups.items()
+            for k, v in leaves.items()}
+
+
+def stacked_param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The leaves' axes with the leading watershed axis, ``"batch"``: the
+    rules put it on ("pod", "data"), one watershed's model to a rank."""
+    return {k: ("batch",) + v for k, v in param_specs(cfg).items()}
+
+
+def batch_specs(stacked: bool) -> Dict[str, tuple]:
+    """Axes of each placed batch input, replica axis in front: stacked,
+    the watershed axis takes ``"batch"`` and the per-watershed minibatch
+    axis stays whole (a watershed's samples stay on its rank); single
+    mode, the replica axis has size 1 and the minibatch takes it."""
+    if stacked:
+        return {k: ("batch",) + tuple(None if a == "batch" else a for a in v)
+                for k, v in BATCH_AXES.items()}
+    return {k: (None,) + v for k, v in BATCH_AXES.items()}
+
+
 def init(cfg: ModelConfig, generator: torch.Generator, num_watersheds: int,
          device: str | torch.device = "cpu") -> Params:
     """Random stacked params for ``num_watersheds`` replicas, drawn on the
@@ -92,10 +140,19 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     dc = cfg.domst
     precip = batch["precip"]
     if dc.use_pixcon:
-        x, w = pixcon_block(subtree(params, "pixcon"), dc.pixcon, precip,
-                            batch["dist"], batch["target_day"],
-                            gate=ops.pixcon_gate)
-        parts, _ = partition_pixels(x, w, dc.num_heads)
+        pp = subtree(params, "pixcon")
+        names = sorted(pp)
+
+        def gate_parts(x, dist, td, *w):
+            x, wts = pixcon_block(dict(zip(names, w)), dc.pixcon, x, dist,
+                                  td, gate=ops.pixcon_gate)
+            return partition_pixels(x, wts, dc.num_heads)[0]
+        args = [precip, batch["dist"], batch["target_day"]]
+        if shd.is_distributed(precip):
+            # on a mesh the gate and the ranking run on local blocks
+            parts = shd.local_rows(gate_parts, args, [pp[k] for k in names])
+        else:
+            parts = gate_parts(*args, *(pp[k] for k in names))
     else:
         parts = static_partition(precip, dc.num_heads)
     feats = spatial_block(subtree(params, "spatial"), dc, parts)

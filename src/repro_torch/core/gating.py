@@ -15,6 +15,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import constrain
+
 HIDDEN = 64      # the reference's ``gate_params`` default
 
 
@@ -23,6 +25,12 @@ def gate_shapes(d_model: int) -> Dict[str, Tuple[tuple, str, None]]:
     return {"w1": ((d_model, HIDDEN), "normal", None),
             "b1": ((HIDDEN,), "zeros", None),
             "w2": ((HIDDEN, 1), "normal", None)}
+
+
+def param_specs() -> Dict[str, tuple]:
+    """Logical axes of each leaf, the reference's ``gate_params`` axes."""
+    return {"w1": ("embed", "hidden"), "b1": ("hidden",),
+            "w2": ("hidden", None)}
 
 
 def contribution_gate(params, x: torch.Tensor,
@@ -34,4 +42,4 @@ def contribution_gate(params, x: torch.Tensor,
     h = torch.tanh(x @ params["w1"].to(x.dtype) + params["b1"].to(x.dtype))
     s = (h @ params["w2"].to(x.dtype))[..., 0]
     w = 2.0 * torch.sigmoid(s.float() / temperature)
-    return x * w[..., None].to(x.dtype)
+    return constrain(x * w[..., None].to(x.dtype), ("batch", "seq", "embed"))

@@ -36,6 +36,13 @@ def pixcon_params(pc: PixConConfig):
     }
 
 
+def param_specs():
+    """Logical axes of each leaf, in the port's layout (``w2`` without its
+    unit axis): the reference's ``pixcon_params`` axes."""
+    return {"w1": (None, "hidden"), "b1": ("hidden",), "w2": ("hidden",),
+            "b2": (None,)}
+
+
 def pixel_features(precip: torch.Tensor, dist: torch.Tensor,
                    target_day: torch.Tensor) -> torch.Tensor:
     """precip (R,B,T,P), dist (R,B,P), target_day (R,B,P) -> (R,B,P,F)."""

@@ -9,11 +9,13 @@ wh (R,H,4,H), b (R,4,H), gates i|f|g|o, forget bias +1.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import DomSTConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.lstm_cell.ops import lstm_cell_fused
 
 
@@ -41,6 +43,20 @@ def temporal_params(dc: DomSTConfig, in_dim: int):
     return p
 
 
+def param_specs(dc: DomSTConfig):
+    """Logical axes of each leaf, in the kernel's gate-split layout: the
+    reference's packed 4H axis (``"hidden"``) becomes (None, ``"hidden"``),
+    so a shard holds every gate of its hidden units."""
+    p = {}
+    for layer in range(dc.lstm_layers):
+        p[f"lstm{layer}/wx"] = (None, None, "hidden")
+        p[f"lstm{layer}/wh"] = ("hidden", None, "hidden")
+        p[f"lstm{layer}/b"] = (None, "hidden")
+    p.update({"fc1": (None, "hidden"), "fc1_b": ("hidden",),
+              "fc2": ("hidden", None), "fc2_b": (None,)})
+    return p
+
+
 def lstm_cell(params: Dict[str, torch.Tensor], x_t: torch.Tensor,
               h: torch.Tensor, c: torch.Tensor, *,
               cell: Callable = lstm_cell_fused
@@ -49,22 +65,34 @@ def lstm_cell(params: Dict[str, torch.Tensor], x_t: torch.Tensor,
     return cell(x_t, h, c, params["wx"], params["wh"], params["b"])
 
 
+def lstm_layer(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
+               b: torch.Tensor, *, cell: Callable = lstm_cell_fused
+               ) -> torch.Tensor:
+    """One LSTM layer over the days: x (R,B,T,D) -> hidden states (R,B,T,H),
+    one fused-cell call a day."""
+    lp = {"wx": wx, "wh": wh, "b": b}
+    R, B, T, _ = x.shape
+    h = x.new_zeros((R, B, wh.shape[1]))
+    c = torch.zeros_like(h)
+    xs = x.permute(2, 0, 1, 3).contiguous()                     # (T,R,B,D)
+    hs = []
+    for t in range(T):
+        h, c = lstm_cell(lp, xs[t], h, c, cell=cell)
+        hs.append(h)
+    return torch.stack(hs, dim=2)                               # (R,B,T,H)
+
+
 def temporal_block(params: Dict[str, torch.Tensor], dc: DomSTConfig,
                    feats: torch.Tensor, target_day: Optional[torch.Tensor],
                    *, cell: Callable = lstm_cell_fused) -> torch.Tensor:
-    """feats (R,B,T,F), target_day (R,B,P) or None -> discharge (R,B)."""
+    """feats (R,B,T,F), target_day (R,B,P) or None -> discharge (R,B).
+    On a mesh each layer's steps run on local blocks (``local_rows``)."""
     x = feats
     for layer in range(dc.lstm_layers):
-        lp = {k: params[f"lstm{layer}/{k}"] for k in ("wx", "wh", "b")}
-        R, B, T, _ = x.shape
-        h = x.new_zeros((R, B, lp["wh"].shape[1]))
-        c = torch.zeros_like(h)
-        xs = x.permute(2, 0, 1, 3).contiguous()                 # (T,R,B,D)
-        hs = []
-        for t in range(T):
-            h, c = lstm_cell(lp, xs[t], h, c, cell=cell)
-            hs.append(h)
-        x = torch.stack(hs, dim=2)                              # (R,B,T,H)
+        lp = [params[f"lstm{layer}/{k}"] for k in ("wx", "wh", "b")]
+        run = functools.partial(lstm_layer, cell=cell)
+        x = (shd.local_rows(run, [x], lp) if shd.is_distributed(x)
+             else run(x, *lp))
     h = x[:, :, -1]                                             # last hidden
     if dc.use_target_day and target_day is not None:
         h = torch.cat([h, target_day], dim=-1)                  # the (+P) cue

@@ -1,8 +1,8 @@
 """Prefetching data loading: the paper's input pipeline ("I.P.", Fig. 2a)
-on one device.
+on one device or a mesh.
 
 A copy of the reference's ``data/loader.py`` with the placement done by
-PyTorch on one card instead of ``jax.device_put`` onto a mesh:
+PyTorch instead of ``jax.device_put``:
 
   * :class:`DataSource` — a random-access batch protocol:
     ``host_batch(step)`` returns the host (numpy) batch for a global step.
@@ -13,9 +13,10 @@ PyTorch on one card instead of ``jax.device_put`` onto a mesh:
     included.
 
   * :class:`ShardedLoader` — wraps a DataSource and an ``Engine``: each
-    host batch is placed on the engine's device by ``engine.place_batch``,
-    and a background thread runs ``prefetch`` batches ahead of the
-    consumer. ``prefetch=0`` is the synchronous path (same batches, same
+    host batch is placed on the engine's device by ``engine.place_batch``
+    (on an engine with a mesh: a DTensor per input, this rank's block
+    copied by ``DTensor.from_local``), and a background thread runs
+    ``prefetch`` batches ahead of the consumer. ``prefetch=0`` is the synchronous path (same batches, same
     placement, no thread).
 
 On the card the worker copies each batch on a stream of its own, so the
@@ -144,7 +145,8 @@ class ShardedLoader:
                     cur = torch.cuda.current_stream(dev)
                     cur.wait_event(ready)
                     for v in item.values():
-                        v.record_stream(cur)
+                        (v.to_local() if hasattr(v, "to_local")
+                         else v).record_stream(cur)
                 self.cursor = tag + 1
                 yield item
         finally:

@@ -1,5 +1,5 @@
 """Training launcher: Dom-ST multi-watershed training and LM training
-on one device.
+on one device, or on the reference's production mesh.
 
 The reference's ``repro/launch/train.py``, through the port's engine
 (``repro_torch/train/``) fed by the prefetching loader
@@ -36,6 +36,13 @@ the batch stream where it stopped, mid-epoch included. The same file is
 the hand-off into serving: ``repro_torch.launch.serve --ckpt`` restores
 its params.
 
+``--mesh host`` (the default) is the one-device path. ``--mesh pod`` or
+``multipod`` lays the reference's (16, 16) ("data", "model") or
+(2, 16, 16) ("pod", "data", "model") mesh over a ``torchrun`` world of
+256 or 512 ranks (``launch/mesh.py``; it raises on a smaller world): the
+engine places the state and the batches by the rule table, the
+watersheds on the data axes, and every rank prints the same record.
+
 It prints the reference's per-epoch lines and final JSON record, plus the
 device. Runs on the card unless ``--device cpu`` is given; without a card
 it raises. ``--profile-dir DIR`` writes a ``torch.profiler`` trace of
@@ -60,6 +67,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -77,6 +85,7 @@ from repro_torch.data.pipeline import (
 )
 from repro_torch.data.tokens import TokenSource, synthetic_token_batch
 from repro_torch.device import device_name
+from repro_torch.distributed.sharding import full_host
 from repro_torch.metrics import Meter
 from repro_torch.models import transformer as tfm
 from repro_torch.obs import MetricRegistry, profiler
@@ -121,6 +130,20 @@ def _train_metrics(registry: MetricRegistry) -> dict:
             "loader_wait_s": round(wait_h.sum, 6)}
 
 
+def _make_mesh(name: str, device: str):
+    """``--mesh``: None for ``host`` (one device); the production mesh over
+    the ``torchrun`` world (its process group started from the launcher's
+    environment) for ``pod`` / ``multipod``."""
+    if name == "host":
+        return None
+    from repro_torch.launch.mesh import make_production_mesh
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not torch.distributed.is_initialized():
+        torch.distributed.init_process_group(
+            "nccl" if torch.device(device).type == "cuda" else "gloo")
+    return make_production_mesh(multi_pod=name == "multipod", device=device)
+
+
 def _init(cfg, seed: int, replicas: int) -> domst.Params:
     return domst.init(cfg, torch.Generator().manual_seed(seed), replicas)
 
@@ -138,8 +161,11 @@ def train_domst(args) -> dict:
     registry = MetricRegistry()
     meter = Meter(registry=registry, prefix="train.")
 
+    mesh = _make_mesh(args.mesh, args.device)
+
     def engine_for(tc, stacked):
-        return Engine.for_domst(cfg, tc, stacked=stacked, device=args.device)
+        return Engine.for_domst(cfg, tc, stacked=stacked, device=args.device,
+                                mesh=mesh)
 
     if args.mode == "stacked":          # IP-D: all watersheds per step
         engine = engine_for(tc, True)
@@ -166,14 +192,14 @@ def train_domst(args) -> dict:
             if args.eval_interval and step % args.eval_interval == 0:
                 ev = engine.eval_step(state, held_out)
                 print(f"step {step} eval mean NSE "
-                      f"{float(torch.mean(ev['nse'])):.4f}", flush=True)
+                      f"{float(np.mean(full_host(ev['nse']))):.4f}", flush=True)
             if step % spe == 0:         # epoch boundary
-                meter.update(loss=float(torch.mean(m["loss"])))
+                meter.update(loss=float(np.mean(full_host(m["loss"]))))
                 print(f"epoch {step // spe - 1} mean loss "
                       f"{meter.last('loss'):.4f} "
                       f"({meter.elapsed():.1f}s)", flush=True)
         ev = engine.eval_step(state, held_out)
-        nses = [float(x) for x in ev["nse"].cpu().numpy()]
+        nses = [float(x) for x in full_host(ev["nse"])]
     else:                               # sequential: one watershed at a time
         if args.resume or args.ckpt:
             raise SystemExit(
@@ -193,8 +219,9 @@ def train_domst(args) -> dict:
                 state, m = engine.step(state, batch)
             _, te = train_test_split(w)
             ev = engine.eval_step(state, engine.place_batch(te))
-            nses.append(float(ev["nse"]))
-            print(f"watershed {w.watershed_id} loss {float(m['loss']):.4f} "
+            nses.append(float(full_host(ev["nse"])))
+            print(f"watershed {w.watershed_id} loss "
+                  f"{float(full_host(m['loss'])):.4f} "
                   f"nse {nses[-1]:.4f} ({meter.elapsed():.1f}s)", flush=True)
 
     result = {"arch": args.arch, "mode": args.mode,
@@ -228,7 +255,8 @@ def train_lm(args):
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      warmup_steps=max(args.steps // 10, 1), remat="block",
                      grad_accum=args.accum_steps, seed=args.seed)
-    engine = Engine.for_lm(cfg, tc, device=args.device)
+    mesh = _make_mesh(args.mesh, args.device)
+    engine = Engine.for_lm(cfg, tc, device=args.device, mesh=mesh)
     dev = engine.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -244,7 +272,7 @@ def train_lm(args):
         # continue, don't replay: the loader resumes the token stream at
         # the restored step and the schedule horizon extends past it
         tc = dataclasses.replace(tc, total_steps=start + args.steps)
-        engine = Engine.for_lm(cfg, tc, device=dev)
+        engine = Engine.for_lm(cfg, tc, device=dev, mesh=mesh)
 
     source = TokenSource(cfg, args.batch_size, args.seq_len, seed=args.seed)
     if args.eval_interval:
@@ -258,12 +286,12 @@ def train_lm(args):
     losses = []
     for batch in _timed(loader, registry):
         state, m = engine.step(state, batch)
-        losses.append(float(m["loss"]))
+        losses.append(float(full_host(m["loss"])))
         i = loader.cursor - start - 1
         if args.eval_interval and loader.cursor % args.eval_interval == 0:
             ev = engine.eval_step(state, held_out)
             print(f"step {loader.cursor} eval loss "
-                  f"{float(ev['loss']):.4f}", flush=True)
+                  f"{float(full_host(ev['loss'])):.4f}", flush=True)
         if i % max(args.steps // 10, 1) == 0:
             print(f"step {i:5d} loss {losses[-1]:.4f} "
                   f"({meter.elapsed():.1f}s)", flush=True)
@@ -307,6 +335,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--days", type=int, default=400)
     ap.add_argument("--mode", choices=("stacked", "sequential"),
                     default="stacked")
+    ap.add_argument("--mesh", choices=("host", "pod", "multipod"),
+                    default="host",
+                    help="host: one device; pod/multipod: the production "
+                         "(16, 16) / (2, 16, 16) mesh over a torchrun world "
+                         "of 256 / 512 ranks")
     ap.add_argument("--accum-steps", type=int, default=1,
                     help="gradient-accumulation microbatches per step")
     ap.add_argument("--prefetch", type=int, default=2,

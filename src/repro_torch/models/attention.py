@@ -39,9 +39,28 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import kernels as dk
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.local_attn.ops import local_attention_fused
 from repro_torch.kernels.paged_attn.ops import paged_attention_fused
-from repro_torch.models.layers import NEG_INF, apply_norm, apply_rope
+from repro_torch.models.layers import (
+    NEG_INF, apply_norm, apply_rope, norm_specs,
+)
+
+
+def param_specs(cfg: ModelConfig):
+    """Logical axes of each leaf, the reference's ``attn_params`` axes."""
+    p = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        p.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                 bv=("kv_heads", "head_dim"))
+    if cfg.qk_norm:
+        p.update(q_norm=norm_specs("rmsnorm"), k_norm=norm_specs("rmsnorm"))
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -70,6 +89,9 @@ def qkv_project(params, cfg: ModelConfig, x: torch.Tensor,
         # rope over (B,S,H,D): positions broadcast over the head axis
         q = apply_rope(q, positions[:, :, None], cfg.rope_theta)
         k = apply_rope(k, positions[:, :, None], cfg.rope_theta)
+    q = constrain(q, ("batch", "seq", "heads", "head_dim"))
+    k = constrain(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = constrain(v, ("batch", "seq", "kv_heads", "head_dim"))
     return q, k, v
 
 
@@ -77,7 +99,8 @@ def out_project(params, x: torch.Tensor) -> torch.Tensor:
     """(B,S,Hq,D) -> (B,S,d)."""
     B, S = x.shape[:2]
     wo = params["wo"].to(x.dtype)
-    return x.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    out = x.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    return constrain(out, ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -198,9 +221,11 @@ def attention_block(params, cfg: ModelConfig, x: torch.Tensor, *, kind: str,
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     q, k, v = qkv_project(params, cfg, x, positions)
     if kind == "local":
-        o = local(q.contiguous(), k.contiguous(), v.contiguous(),
-                  window=cfg.window, causal=cfg.causal,
+        kw = dict(window=cfg.window, causal=cfg.causal,
                   softcap=float(cfg.attn_softcap))
+        o = (dk.local_attention(local, q, k, v, **kw)
+             if shd.is_distributed(q) else
+             local(q.contiguous(), k.contiguous(), v.contiguous(), **kw))
     elif return_kv:
         o = flash_attention(q, k, v, causal=cfg.causal,
                             softcap_val=cfg.attn_softcap)

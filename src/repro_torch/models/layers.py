@@ -14,8 +14,34 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constrain
 
 NEG_INF = -1e30
+
+
+def norm_specs(kind: str):
+    """Logical axes of a norm's leaves: every norm scale and bias is
+    ``("embed",)`` in the reference, whatever its width (the QK norm's
+    head dim, the SSM's inner width)."""
+    if kind == "rmsnorm":
+        return {"scale": ("embed",)}
+    if kind == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    if kind == "nonparam_ln":
+        return {}
+    raise ValueError(f"unknown norm '{kind}'")
+
+
+def param_specs(cfg):
+    """Logical axes of the embedding's leaves, the reference's
+    ``embed_params`` axes."""
+    p = {"embedding": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        p["unembed"] = ("embed", "vocab")
+    return p
 
 
 def apply_norm(params, kind: str, x: torch.Tensor,
@@ -86,10 +112,12 @@ def sinusoidal_positions(seq_len: int, dim: int, offset: int = 0,
 # ---------------------------------------------------------------------------
 def embed(params, tokens: torch.Tensor, *, scale: bool, d_model: int,
           dtype: torch.dtype) -> torch.Tensor:
-    x = params["embedding"][tokens.long()].to(dtype)
+    table = params["embedding"]
+    x = (shd.embedding_lookup(table, tokens.long()) if isinstance(
+        table, DTensor) else table[tokens.long()]).to(dtype)
     if scale:
         x = x * torch.tensor(math.sqrt(d_model), dtype=dtype, device=x.device)
-    return x
+    return constrain(x, ("batch", "seq", "embed"))
 
 
 def unembed(params, x: torch.Tensor, *, tie: bool, cap: float = 0.0,
@@ -105,4 +133,4 @@ def unembed(params, x: torch.Tensor, *, tie: bool, cap: float = 0.0,
     if real_vocab is not None and real_vocab < pv:
         col = torch.arange(pv, device=logits.device)
         logits = torch.where(col < real_vocab, logits, NEG_INF)
-    return logits
+    return constrain(logits, ("batch", "seq", "vocab"))

@@ -35,6 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import kernels as dk
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.conv1d.ops import causal_conv1d
 from repro_torch.kernels.conv1d.ref import tail_snapshots
 
@@ -57,6 +60,16 @@ def rglru_shapes(cfg: ModelConfig):
         "lam": ((w,), "uniform", 1.0),
         "w_out": ((w, d), "normal", None),
     }
+
+
+def param_specs(cfg: ModelConfig):
+    """Logical axes of each leaf, the reference's ``rglru_params`` axes."""
+    del cfg
+    return {"w_x": ("embed", "inner"), "w_y": ("embed", "inner"),
+            "conv_w": ("conv", "inner"), "conv_b": ("inner",),
+            "wa": ("inner", "inner"), "ba": ("inner",),
+            "wi": ("inner", "inner"), "bi": ("inner",), "lam": ("inner",),
+            "w_out": ("inner", "embed")}
 
 
 class RGLRUState(NamedTuple):
@@ -82,6 +95,8 @@ def _conv(params, cfg: ModelConfig, u: torch.Tensor,
     b = params["conv_b"].to(u.dtype)
     if tail is not None:
         tail = tail.to(u.dtype).contiguous()
+    if shd.is_distributed(u):
+        return dk.conv1d(conv, u, w, b, activation="none", tail=tail)
     return conv(u.contiguous(), w.contiguous(), b.contiguous(),
                 activation="none", tail=tail)
 
@@ -128,9 +143,11 @@ def rglru_block(params, cfg: ModelConfig, x: torch.Tensor, *,
     RGLRUState float32)."""
     u, y_gate = _branches(params, cfg, x)
     u, tail = _conv(params, cfg, u, conv=conv)
+    u = constrain(u, ("batch", "seq", "inner"))
     a, b = _gates(params, cfg, u)
     h = linear_scan(a, b).to(x.dtype)
     out = (h * y_gate) @ params["w_out"].to(x.dtype)
+    out = constrain(out, ("batch", "seq", "embed"))
     return out, RGLRUState(h=h[:, -1].float(), conv=tail.float())
 
 

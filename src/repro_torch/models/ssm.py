@@ -24,6 +24,7 @@ kernels' run on the card.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -33,7 +34,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.conv1d.ops import causal_conv1d
 from repro_torch.kernels.conv1d.ref import tail_snapshots
 from repro_torch.kernels.ssd_chunk.ops import ssd_chunk_fused
-from repro_torch.models.layers import apply_norm
+from repro_torch.distributed import kernels as dk
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constrain
+from repro_torch.models.layers import apply_norm, norm_specs
 
 
 def ssm_shapes(cfg: ModelConfig):
@@ -59,6 +63,17 @@ def ssm_shapes(cfg: ModelConfig):
         "out_norm": {"scale": ((di,), "ones", None)},
         "w_out": ((di, d), "normal", None),
     }
+
+
+def param_specs(cfg: ModelConfig):
+    """Logical axes of each leaf, the reference's ``ssm_params`` axes."""
+    del cfg
+    return {"w_in_x": ("embed", "inner"), "w_in_z": ("embed", "inner"),
+            "w_in_B": ("embed", "state"), "w_in_C": ("embed", "state"),
+            "w_in_dt": ("embed", "heads"), "dt_bias": ("heads",),
+            "A_log": ("heads",), "D": ("heads",), "conv_w": ("conv", "inner"),
+            "conv_b": ("inner",), "out_norm": norm_specs("rmsnorm"),
+            "w_out": ("inner", "embed")}
 
 
 class SSMState(NamedTuple):
@@ -102,6 +117,8 @@ def _causal_conv(params, cfg: ModelConfig, xBC: torch.Tensor,
     b = params["conv_b"].to(xBC.dtype)
     if tail is not None:
         tail = tail.to(xBC.dtype).contiguous()
+    if shd.is_distributed(xBC):
+        return dk.conv1d(conv, xBC, w, b, activation="silu", tail=tail)
     return conv(xBC.contiguous(), w.contiguous(), b.contiguous(),
                 activation="silu", tail=tail)
 
@@ -190,14 +207,20 @@ def ssm_block(params, cfg: ModelConfig, x: torch.Tensor, *,
     Bsz, S = x.shape[0], x.shape[1]
     H, P = s.num_heads(cfg.d_model), s.head_dim
     xh = xh.reshape(Bsz, S, H, P)
+    xh = constrain(xh, ("batch", "seq", "heads", None))
     Bm = Bm.reshape(Bsz, S, s.ngroups, s.state_dim)
     Cm = Cm.reshape(Bsz, S, s.ngroups, s.state_dim)
     dt = F.softplus(dt + params["dt_bias"].to(dt.dtype))
-    y, hT = ssd_chunked(xh, dt, _decay_rate(params), Bm, Cm, params["D"],
-                        s.chunk_size, ssd=ssd)
+    args = (xh, dt, _decay_rate(params), Bm, Cm, params["D"])
+    if shd.is_distributed(xh):
+        # the chunked scan is per head: on local blocks of batch and heads
+        y, hT = dk.ssd_chunked(functools.partial(
+            ssd_chunked, chunk=s.chunk_size, ssd=ssd), *args)
+    else:
+        y, hT = ssd_chunked(*args, s.chunk_size, ssd=ssd)
     y = y.reshape(Bsz, S, -1)
     y = apply_norm(params["out_norm"], "rmsnorm", y * F.silu(z))
-    out = y @ params["w_out"].to(x.dtype)
+    out = constrain(y @ params["w_out"].to(x.dtype), ("batch", "seq", "embed"))
     return out, SSMState(h=hT.float(), conv=tail.float())
 
 

@@ -60,6 +60,8 @@ from repro_torch.configs.base import (
     ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, SSM, ModelConfig,
 )
 from repro_torch.core.gating import contribution_gate, gate_shapes
+from repro_torch.distributed import sharding as shd
+from repro_torch.core.gating import param_specs as gate_specs
 from repro_torch.kernels.conv1d.ops import causal_conv1d
 from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
 from repro_torch.kernels.local_attn.ops import local_attention_fused
@@ -75,8 +77,9 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import PagedKVCache
 from repro_torch.models.layers import (
-    apply_norm, embed, sinusoidal_positions, unembed,
+    apply_norm, embed, norm_specs, sinusoidal_positions, unembed,
 )
+from repro_torch.models.layers import param_specs as layers_specs
 
 LayerKind = str
 Params = Dict[str, Any]
@@ -228,6 +231,64 @@ def model_params(cfg: ModelConfig, make: Callable) -> Params:
     return p
 
 
+def _layer_specs(cfg: ModelConfig, kind: LayerKind, ffn: str
+                 ) -> Dict[str, Any]:
+    """The logical axes of ``_layer_shapes``' leaves."""
+    norm = norm_specs(cfg.norm)
+    out: Dict[str, Any] = {"norm1": norm}
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        out["attn"] = attn_mod.param_specs(cfg)
+    elif kind == RECURRENT:
+        out["rec"] = rglru_mod.param_specs(cfg)
+    elif kind == SSM:
+        out["ssm"] = ssm_mod.param_specs(cfg)
+    else:
+        raise ValueError(kind)
+    if cfg.post_norms:
+        out["post_norm1"] = norm
+    if ffn != "none":
+        out["norm2"] = norm
+        out["ffn"] = (mlp_mod.param_specs() if ffn == "dense"
+                      else moe_mod.param_specs(cfg))
+        if cfg.post_norms:
+            out["post_norm2"] = norm
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The logical-axes tree of ``model_params``: the reference's
+    ``param_specs`` in the port's per-layer layout (one dict a layer where
+    the reference stacks the repetitions on a leading unnamed axis)."""
+    p: Params = {"embed": layers_specs(cfg),
+                 "final_norm": norm_specs(cfg.norm)}
+    if cfg.contribution_gate:
+        p["gate"] = gate_specs()
+    if cfg.frontend == "audio_stub":
+        p["frontend"] = {"proj": (None, "embed"), "proj_b": ("embed",)}
+    elif cfg.frontend == "vision_stub":
+        p["frontend"] = {"w1": (None, "embed"), "b1": ("embed",),
+                         "w2": ("embed", None), "b2": ("embed",)}
+    p["layers"] = [_layer_specs(cfg, kind, ffn)
+                   for kind, ffn in layer_plan(cfg)]
+    return p
+
+
+def flat_param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """``param_specs`` keyed as the LM engine keeps its params
+    (``convert.flatten``'s '/'-joined paths), each with the engine's
+    leading replica axis of 1 (``None``)."""
+    def walk(t, key):
+        if isinstance(t, list):
+            t = {str(i): v for i, v in enumerate(t)}
+        for k, v in t.items():
+            path = f"{key}/{k}" if key else k
+            if isinstance(v, tuple):
+                yield path, (None,) + v
+            else:
+                yield from walk(v, path)
+    return dict(walk(param_specs(cfg), ""))
+
+
 def init(cfg: ModelConfig, generator: torch.Generator,
          dtype: torch.dtype = torch.float32) -> Params:
     """Random params on the generator's device, by the reference's
@@ -306,8 +367,9 @@ def embed_inputs(params: Params, cfg: ModelConfig,
         f = params["frontend"]
         x = inputs["frames"].to(dtype) @ f["proj"].to(dtype)
         x = x + f["proj_b"].to(dtype)
-        return x + sinusoidal_positions(x.shape[1], cfg.d_model,
-                                        device=x.device).to(dtype)[None]
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     device=x.device).to(dtype)[None]
+        return shd.constrain(x, ("batch", "seq", "embed"))
     txt = embed(params["embed"], inputs["tokens"], scale=cfg.embed_scale,
                 d_model=cfg.d_model, dtype=dtype)
     if cfg.frontend == "vision_stub" and "patches" in inputs:
@@ -315,7 +377,8 @@ def embed_inputs(params: Params, cfg: ModelConfig,
         h = F.gelu(inputs["patches"].to(dtype) @ f["w1"].to(dtype)
                    + f["b1"].to(dtype), approximate="tanh")
         img = h @ f["w2"].to(dtype) + f["b2"].to(dtype)
-        return torch.cat([img, txt], dim=1)
+        return shd.constrain(torch.cat([img, txt], dim=1),
+                             ("batch", "seq", "embed"))
     return txt
 
 
@@ -338,7 +401,7 @@ def _apply_ffn(lp, cfg: ModelConfig, x: torch.Tensor, ffn: str):
     if ffn == "dense":
         out = mlp_mod.mlp_block(lp["ffn"], cfg, h)
     else:
-        out, aux = moe_mod.moe_block(lp["ffn"], cfg, h)
+        out, aux = moe_mod.moe_block_auto(lp["ffn"], cfg, h)
     if cfg.post_norms:
         out = apply_norm(lp["post_norm2"], cfg.norm, out)
     return x + out, aux
@@ -455,7 +518,14 @@ def _chunk_nll(embed_p, cfg: ModelConfig, xc: torch.Tensor, tc: torch.Tensor,
     logits = unembed(embed_p, xc, tie=cfg.tie_embeddings,
                      cap=cfg.logit_softcap, real_vocab=cfg.vocab_size)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    if shd.is_distributed(logits):
+        # the target's logit from vocab-sharded logits: a masked sum over
+        # the vocab (exact: one term is not zero), which DTensor reduces
+        # over "model" where a gather has no sharding rule
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(col == tc[..., None].long(), logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
     return ((logz - gold) * mc).sum(), mc.sum()
 
 

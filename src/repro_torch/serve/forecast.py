@@ -9,7 +9,15 @@ precipitation window + domain prior and emitting that day's discharge.
 This is the reference's ``lax.scan`` over days inside a ``vmap`` over
 watersheds, written as a loop over days with the watershed axis kept.
 Per-watershed NSE/MSE against observed discharge come back from the same
-call. There are no meshes and no shardings: it runs on one device.
+call.
+
+On one device by default; with ``mesh=`` (``launch/mesh.py``) the params
+and the forcing windows are placed as in training (the watershed axis on
+the batch axes, the heads and hidden units on "model", by the
+reference's rules), the forward runs under ``logical_sharding`` with the
+Pix-Con and LSTM kernels on local blocks (``local_map``), and the
+results are gathered: every rank returns the full (W, N) and (W,)
+tensors.
 """
 from __future__ import annotations
 
@@ -20,9 +28,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import domst
 from repro_torch.device import as_f32, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.metrics.nse import nse
 
 FORCING_KEYS = ("precip", "target_day", "dist")
+# day-major placed inputs (N, W, ...) and the observed discharge (W, N)
+PLACED_AXES = {"precip": (None, "batch", "time", "pixels"),
+               "target_day": (None, "batch", "pixels"),
+               "dist": (None, "batch", "pixels"),
+               "discharge": ("batch", None)}
 
 
 class Forecaster:
@@ -35,23 +49,42 @@ class Forecaster:
     """
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda",
-                 ops: domst.KernelOps = domst.KERNELS):
+                 ops: domst.KernelOps = domst.KERNELS, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            device = (torch.device("cuda", torch.cuda.current_device())
+                      if mesh.device_type == "cuda" else mesh.device_type)
+            self.rules = shd.make_rules(cfg, mesh=mesh)
         self.device = resolve_device(device)
         self.ops = ops
 
     def place_params(self, params: domst.Params) -> domst.Params:
-        """Stacked params as contiguous float32 tensors on the device."""
+        """Stacked params as contiguous float32 tensors on the device, or
+        DTensors placed by the rules on the mesh."""
+        if self.mesh is not None:
+            return shd.distribute_tree(
+                {k: torch.as_tensor(v) for k, v in params.items()},
+                domst.stacked_param_specs(self.cfg), self.mesh, self.rules,
+                device=self.device)
         return {k: as_f32(v, self.device) for k, v in params.items()}
 
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """(W, N, ...) arrays -> day-major (N, W, ...) tensors on the device,
         so each day's (W, ...) slice is contiguous; ``discharge`` stays
-        (W, N)."""
-        out = {k: as_f32(batch[k], self.device).transpose(0, 1).contiguous()
-               for k in FORCING_KEYS}
-        out["discharge"] = as_f32(batch["discharge"], self.device)
-        return out
+        (W, N). On the mesh each is a DTensor, the watershed axis on the
+        batch axes."""
+        if self.mesh is None:
+            out = {k: as_f32(batch[k], self.device).transpose(0, 1)
+                   .contiguous() for k in FORCING_KEYS}
+            out["discharge"] = as_f32(batch["discharge"], self.device)
+            return out
+        out = {k: torch.as_tensor(batch[k]).float().transpose(0, 1)
+               .contiguous() for k in FORCING_KEYS}
+        out["discharge"] = torch.as_tensor(batch["discharge"]).float()
+        return {k: shd.distribute(v, self.mesh, shd.resolve(
+            PLACED_AXES[k], v.shape, self.mesh, self.rules), self.device)
+            for k, v in out.items()}
 
     def __call__(self, params: domst.Params, batch: Dict[str, Any]
                  ) -> Dict[str, torch.Tensor]:
@@ -65,10 +98,16 @@ class Forecaster:
         """``__call__`` on what ``place_params``/``place_batch`` returned."""
         obs = placed["discharge"]
         qs = []
-        with torch.inference_mode():
+        # DTensor views refuse inference tensors: no_grad on a mesh
+        no_grad = torch.inference_mode if self.mesh is None else torch.no_grad
+        with no_grad(), shd.mesh_context(self.mesh,
+                                         getattr(self, "rules", None)):
             for n in range(obs.shape[1]):
                 day = {k: placed[k][n].unsqueeze(1) for k in FORCING_KEYS}
                 qs.append(domst.forward(params, self.cfg, day, self.ops)[:, 0])
             qhat = torch.stack(qs, dim=1)                         # (W, N)
-            return {"qhat": qhat, "nse": nse(qhat, obs),
-                    "mse": torch.mean(torch.square(qhat - obs), dim=-1)}
+            out = {"qhat": qhat, "nse": nse(qhat, obs),
+                   "mse": torch.mean(torch.square(qhat - obs), dim=-1)}
+            if self.mesh is not None:
+                out = {k: v.full_tensor() for k, v in out.items()}
+            return out

@@ -40,7 +40,71 @@ assert not bad, bad
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split()[0])
-    assert n >= 83      # every module of the port, gating and the front-end configs included
+    assert n >= 87      # every module of the port: the distribution layer included
+
+
+def test_host_mesh_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """``make_host_mesh()`` is a CUDA mesh unless the caller asks for the
+    CPU; without a card it raises before it starts any process group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_host_mesh()
+    assert not dist.is_initialized()
+
+
+def test_production_mesh_raises_on_a_small_world():
+    """``--mesh pod`` needs 256 ranks and ``multipod`` 512: a one-process
+    run raises as the reference's ``make_production_mesh`` does."""
+    from repro_torch.launch.mesh import make_production_mesh
+    for multi_pod, n in ((False, 256), (True, 512)):
+        with pytest.raises(RuntimeError, match=f"needs {n} ranks"):
+            make_production_mesh(multi_pod=multi_pod, device="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "domst",
+         "--watersheds", "1", "--days", "60", "--device", "cpu",
+         "--mesh", "pod"],
+        env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "needs 256 ranks" in out.stderr
+
+
+def test_host_mesh_on_the_cpu_is_one_by_one(tmp_path):
+    """A world-1 gloo group started by ``make_host_mesh("cpu")`` itself,
+    in a fresh process: a 1x1 ("data", "model") mesh, and a Dom-ST step
+    on it equal to the one-device step to the bit."""
+    code = """
+import torch, torch.distributed as dist
+from repro_torch.configs import TrainConfig, get_config, smoke_variant
+from repro_torch.core import domst
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.train import Engine
+mesh = make_host_mesh("cpu")
+assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
+assert tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model")
+cfg = smoke_variant(get_config("domst"))
+tc = TrainConfig(learning_rate=1e-3, total_steps=10, warmup_steps=1)
+p = domst.init(cfg, torch.Generator().manual_seed(0), 2)
+b = {"precip": torch.rand(2, 4, cfg.domst.window_days, cfg.domst.num_pixels),
+     "dist": torch.rand(2, 4, cfg.domst.num_pixels),
+     "target_day": torch.rand(2, 4, cfg.domst.num_pixels),
+     "discharge": torch.rand(2, 4)}
+out = []
+for m in (None, mesh):
+    e = Engine.for_domst(cfg, tc, stacked=True, device="cpu", mesh=m)
+    s = e.init_state({k: v.clone() for k, v in p.items()})
+    s, _ = e.step(s, e.place_batch(b))
+    out.append(e.host_state(s).params)
+for k in out[0]:
+    assert torch.equal(out[0][k], out[1][k]), k
+dist.destroy_process_group()
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_forecaster_defaults_to_cuda_and_raises_without_it(monkeypatch):
