@@ -332,6 +332,10 @@ LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_GEN, LM_SEED = 8, 4, 512, 64, 0
 LM_LENS = [LM_PROMPT - (i % 4) * 2 for i in range(LM_REQUESTS)]
 LM_MAX_LEN = LM_PROMPT + LM_GEN
 LM_CHUNK, LM_SPEC_K = 128, 3
+# its float32 per-launch and stream checks at half its 28 layers (the
+# bf16 runs, the logits checks and the width are whole): the cut that
+# pays for phase 15
+LM_F32_DEPTH = 14
 # The served models' queues on 4 slots, by mode, and the queue of the
 # profiled repeat of whole prefill. recurrentgemma-2b and gemma2-2b: whole
 # prefill with prompts past their window (2,048 and 4,096 tokens:
@@ -355,6 +359,11 @@ SERVED_RUNS = {
                  "spec": STEP_LENS},
         "gen": 32, "profile": ([4608, 4300, 1024, 512], 32)},
 }
+# Their float32 checks (every launch against plain, the greedy streams)
+# at about half their depth, each layer kind kept: with phase 5's, the
+# cut that pays for phase 15
+SERVED_F32_DEPTH = {"recurrentgemma-2b": 13, "mamba2-130m": 12,
+                    "gemma2-2b": 13}
 # Phase 10, the serving policies: shared-prefix families (a 1,024-token
 # system prompt and a 64-192-token tail each), 4 families x 4 requests
 # with 32 new tokens for qwen2-1.5b in bf16, else cut to 2 x 2 with 16;
@@ -2274,8 +2283,9 @@ def serve_once(cfg, dev, params, dtype, mode: dict, reqs: list, ops=None,
                profile_reqs: list | None = None) -> dict:
     """One served run of ``reqs`` through the port's Scheduler on 4 slots
     with the launch counts set to 0 just before and read just after.
-    ``mode`` holds the engine's and scheduler's options: ``slots``,
-    ``prefill_chunk``,
+    ``mode`` holds the engine's and scheduler's options: ``mesh`` (the
+    engine's and a model drafter's), ``paged`` (False: the contiguous
+    cache), ``slots``, ``prefill_chunk``,
     ``spec_k`` (with the n-gram drafter, or ``drafter="model"``: the
     served model drafting for itself on its own engine, catching up in
     chunks of ``prefill_chunk`` tokens), ``num_pages``,
@@ -2292,7 +2302,9 @@ def serve_once(cfg, dev, params, dtype, mode: dict, reqs: list, ops=None,
     )
     max_len = max(request_len(r) for r in reqs)
     spec_k, slots = mode.get("spec_k", 0), mode.get("slots", LM_SLOTS)
-    eng = InferenceEngine(cfg, slots=slots, max_len=max_len,
+    mesh = mode.get("mesh")
+    eng = InferenceEngine(cfg, mesh=mesh, slots=slots, max_len=max_len,
+                          paged=mode.get("paged", True),
                           page_size=16, dtype=dtype, device=dev,
                           prefill_chunk=mode.get("prefill_chunk", 0),
                           num_pages=mode.get("num_pages"),
@@ -2302,7 +2314,7 @@ def serve_once(cfg, dev, params, dtype, mode: dict, reqs: list, ops=None,
         if not spec_k:
             return None
         if mode.get("drafter") == "model":
-            return ModelDrafter(cfg, params=params, slots=slots,
+            return ModelDrafter(cfg, params=params, mesh=mesh, slots=slots,
                                 max_len=max_len + spec_k, page_size=16,
                                 catch_up_chunk=mode.get("prefill_chunk")
                                 or 16, dtype=dtype, device=dev)
@@ -2465,6 +2477,13 @@ def checked_ops():
     from repro_torch.models import transformer as tfm
     return tfm.KernelOps(*(Checked(k, p) for k, p in zip(tfm.KERNELS,
                                                         tfm.PLAIN)))
+
+
+def half_depth(cfg, params, layers: int):
+    """``cfg`` and ``params`` cut to their first ``layers`` layers (a
+    uniform stack: the cut keeps the width and every layer's kind)."""
+    return (cfg.replace(num_layers=layers),
+            dict(params, layers=params["layers"][:layers]))
 
 
 def _scaled(t, factor, in_place: bool):
@@ -2683,6 +2702,9 @@ def lm_main_path(dev) -> dict:
           f"({f32_logits['scale']:.3f}); argmax equal kernel/plain "
           f"{f32_logits['argmax_equal']}, card/CPU "
           f"{f32_logits['cpu_argmax_equal']}")
+    # the per-launch and stream checks at LM_F32_DEPTH of the 28 layers
+    # (width, queue and modes whole), to pay for phase 15's time
+    cfg, p32 = half_depth(cfg, p32, LM_F32_DEPTH)
     f32 = {}
     d32 = damped(cfg, p32)
     for name, mode in modes.items():
@@ -2693,9 +2715,10 @@ def lm_main_path(dev) -> dict:
         checked = ops.paged_attn
         f32[name] = {"checked_launches": checked.calls,
                      "max_rel_err": checked.max_rel}
-        print(f"  {name} fp32, every launch held against the plain version: "
-              f"{checked.calls} launches, max error {checked.max_rel:.3e} of "
-              f"the output's largest |value| (tolerance {REL_F32})")
+        print(f"  {name} fp32 ({cfg.num_layers} layers), every launch held "
+              f"against the plain version: {checked.calls} launches, max "
+              f"error {checked.max_rel:.3e} of the output's largest |value| "
+              f"(tolerance {REL_F32})")
         check(checked.calls > 0 and checked.max_rel <= REL_F32,
               f"fp32 {name}: kernel differs from plain by {checked.max_rel}")
 
@@ -2720,7 +2743,8 @@ def lm_main_path(dev) -> dict:
                           "streams_equal": same,
                           "equal_share": same_tokens(k["gen"], p["gen"]),
                           "first_parting": first_parting(k["gen"], p["gen"])})
-        print(f"  {name} fp32, {'damped' if name == 'spec' else 'rescaled'} "
+        print(f"  {name} fp32 ({cfg.num_layers} layers), "
+              f"{'damped' if name == 'spec' else 'rescaled'} "
               f"weights: kernel {k['tok_per_s']:.1f} "
               f"tok/s, plain {p['tok_per_s']:.1f} tok/s, greedy streams "
               f"equal: {same} (first parting {f32[name]['first_parting']})")
@@ -2856,8 +2880,10 @@ def served_main_path(arch: str, dev) -> dict:
     torch.cuda.empty_cache()
 
     # fp32: every launch of one served run per mode held against the plain
-    # versions on the same inputs, on the weights of that mode's bf16 run
+    # versions on the same inputs, on the weights of that mode's bf16 run;
+    # at SERVED_F32_DEPTH of the layers (width, queues and modes whole)
     p32 = init_params(cfg, dev)
+    cfg, p32 = half_depth(cfg, p32, SERVED_F32_DEPTH[arch])
     d32 = damped(cfg, p32)
     f32 = {"checked": {}, "streams": {}}
     for name, mode in modes.items():
@@ -2869,7 +2895,8 @@ def served_main_path(arch: str, dev) -> dict:
                 for k, c in zip(tfm.KernelOps._fields, ops)}
         f32["checked"][name] = rows
         for k, c in ((k, c) for k, c in rows.items() if c["launches"]):
-            print(f"  {arch} {name} fp32, {k}: {c['launches']} launches held "
+            print(f"  {arch} {name} fp32 ({cfg.num_layers} layers), {k}: "
+                  f"{c['launches']} launches held "
                   f"against the plain version, max error "
                   f"{c['max_rel_err']:.3e} of the output's largest |value| "
                   f"(tolerance {REL_F32})")
@@ -2906,7 +2933,8 @@ def served_main_path(arch: str, dev) -> dict:
                "equal_share": same_tokens(k["gen"], p["gen"]),
                "first_parting": first_parting(k["gen"], p["gen"])}
         f32["streams"][f"{name}, {tag}"] = row
-        print(f"  {arch} {name} fp32, {tag}: kernel {k['tok_per_s']:.1f} "
+        print(f"  {arch} {name} fp32 ({cfg.num_layers} layers), {tag}: "
+              f"kernel {k['tok_per_s']:.1f} "
               f"tok/s, plain {p['tok_per_s']:.1f} tok/s, greedy streams "
               f"equal: {row['streams_equal']} (first parting "
               f"{row['first_parting']})")
@@ -4295,6 +4323,127 @@ def distribution_main_path(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: serving on a 1x1 mesh
+# ---------------------------------------------------------------------------
+# qwen2-1.5b at full width and depth in bf16 on one wave (4 requests of
+# 512/510/508/506 tokens, 32 new each), whole, in 128-token chunks and with
+# spec_k=3 (damped weights), through InferenceEngine(mesh=) on the host
+# mesh and on one device from the same params; then float32 at 6 of its
+# layers: every launch on the mesh held against the plain version, and
+# the contiguous engine (page_size=0) against the paged one on the mesh.
+# paged_attn launches by mode, from ``scripts/serve_mesh_rehearsal.py``
+# (the same queue at full depth on the CPU, on one device and on a 1x1
+# mesh alike): 28 layers x 31 decode steps whole; x (43 decode steps + 16
+# chunks) chunked; x 16 steps (15 verify, 1 decode) spec.
+MESH_SERVE_ARCH, MESH_SERVE_F32_DEPTH = "qwen2-1.5b", 6
+MESH_SERVE_LAUNCHES = {"whole": 28 * 31, "chunked": 28 * 59,
+                       "spec": 28 * 16}
+
+
+def serving_mesh_main_path(dev) -> dict:
+    """Phase 15. ``InferenceEngine(mesh=make_host_mesh())`` serving
+    qwen2-1.5b (random weights from the port's init, seed 0) at full
+    width and depth in bf16, in three modes, against the one-device engine
+    from the same params: the launch counts set to 0 just before each run
+    and read just after, equal on and off the mesh and to the rehearsal's;
+    the greedy streams equal (the 1x1 mesh runs the same operations on
+    whole tensors); tok/s, decode tok/s and TTFT on and off the mesh.
+    Then float32 at ``MESH_SERVE_F32_DEPTH`` layers on the mesh: every
+    paged-attention launch held against the plain version (``REL_F32``),
+    and the contiguous engine's greedy streams (rescaled weights) equal to
+    the paged engine's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+
+    mesh = make_host_mesh()
+    check(dist.get_world_size() == 1 and tuple(mesh.shape) == (1, 1),
+          f"host mesh: world {dist.get_world_size()}, shape "
+          f"{tuple(mesh.shape)}")
+    cfg = get_config(MESH_SERVE_ARCH)
+    out = {"launches": {}, "profile": None}
+    try:
+        p32 = tfm.init(cfg, torch.Generator(device=dev).manual_seed(LM_SEED))
+        pbf = tfm.cast_params(p32, torch.bfloat16, dev)
+        wave = lambda: requests_of(cfg.vocab_size, STEP_LENS, 32)
+        modes = {"whole": {}, "chunked": {"prefill_chunk": LM_CHUNK},
+                 "spec": {"spec_k": LM_SPEC_K}}
+        serve_once(cfg, dev, pbf, torch.bfloat16, {"mesh": mesh},
+                   requests_of(cfg.vocab_size, STEP_LENS[:1], 2))  # warm-up
+        runs = {}
+        for name, mode in modes.items():
+            params = damped(cfg, pbf) if name == "spec" else pbf
+            pair = {}
+            for where, m in (("one device", None), ("1x1 mesh", mesh)):
+                r = serve_once(cfg, dev, params, torch.bfloat16,
+                               dict(mode, mesh=m), wave())
+                check_tokens(cfg, f"{name} {where}", r, wave())
+                check_spec(cfg.name, name, r)
+                pair[where] = r
+                print_run(f"{cfg.name} ({where})", name, r)
+            a, b = pair["1x1 mesh"], pair["one device"]
+            want = {k: 0 for k in a["launches"]}
+            want["paged_attn"] = MESH_SERVE_LAUNCHES[name]
+            check(a["launches"] == b["launches"] == want,
+                  f"{name}: launches on the mesh {a['launches']}, one device "
+                  f"{b['launches']}, predicted {want}")
+            same = a["gen"] == b["gen"]
+            print(f"  {name} bf16: streams on the mesh equal one device's: "
+                  f"{same} (first parting {first_parting(a['gen'], b['gen'])})")
+            check(same, f"{name} bf16: the mesh's streams differ")
+            runs[name] = pair
+            out["launches"][name] = a["launches"]
+        del pbf
+        stamp("phase 15 bf16 runs done")
+
+        cfg6, p6 = half_depth(cfg, p32, MESH_SERVE_F32_DEPTH)
+        del p32
+        f32 = {}
+        d6 = damped(cfg6, p6)
+        for name, mode in modes.items():
+            ops = checked_ops()
+            serve_once(cfg6, dev, d6 if name == "spec" else p6,
+                       torch.float32, dict(mode, mesh=mesh), wave(), ops=ops)
+            c = ops.paged_attn
+            f32[name] = {"checked_launches": c.calls, "max_rel_err": c.max_rel}
+            print(f"  {name} fp32 ({MESH_SERVE_F32_DEPTH} layers) on the "
+                  f"mesh, every launch held against the plain version: "
+                  f"{c.calls} launches, max error {c.max_rel:.3e} of the "
+                  f"output's largest |value| (tolerance {REL_F32})")
+            check(c.calls > 0 and c.max_rel <= REL_F32,
+                  f"fp32 {name} on the mesh: kernel differs from plain by "
+                  f"{c.max_rel}")
+        well = well_conditioned(cfg6, p6)
+        paged = serve_once(cfg6, dev, well, torch.float32, {"mesh": mesh},
+                           wave())
+        contiguous = serve_once(cfg6, dev, well, torch.float32,
+                                {"mesh": mesh, "paged": False}, wave())
+        same = contiguous["gen"] == paged["gen"]
+        print(f"  fp32 ({MESH_SERVE_F32_DEPTH} layers, rescaled weights) on "
+              f"the mesh: contiguous (page_size=0) streams equal paged: "
+              f"{same} (first parting "
+              f"{first_parting(contiguous['gen'], paged['gen'])}); "
+              f"contiguous {contiguous['tok_per_s']:.1f} tok/s, launches "
+              f"{ {k: v for k, v in contiguous['launches'].items() if v} }")
+        check(same, "fp32 on the mesh: contiguous and paged streams differ")
+        check(not any(contiguous["launches"].values()),
+              f"the contiguous engine launched {contiguous['launches']}")
+        out["mesh serving"] = {
+            name: {where: {k: r[k] for k in ("tok_per_s", "decode_tok_per_s",
+                                             "ttft_p50_s", "ttft_p99_s",
+                                             "wall_s")}
+                   for where, r in pair.items()}
+            for name, pair in runs.items()}
+        out["fp32"] = f32
+    finally:
+        dist.destroy_process_group()
+    print("  " + json.dumps({k: v for k, v in out.items() if k != "profile"}))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4431,6 +4580,10 @@ def main() -> int:
                            + mesh["domst forecast"]["launches"][name])
     by_model.update({k: v for k, v in mesh.items()
                      if not k.startswith("domst")})
+    print(f"[15] serving on a 1x1 mesh: qwen2-1.5b, one wave in three modes, on and off the mesh (at {time.perf_counter() - T_START:.0f} s)")
+    by_model["qwen2-1.5b on a 1x1 mesh"] = {
+        k: v for k, v in serving_mesh_main_path(dev).items()
+        if k in ("launches", "profile")}
     for res in by_model.values():
         for counts in res["launches"].values():
             for name, c in counts.items():
@@ -4453,7 +4606,7 @@ def main() -> int:
             arch: device_ms_per_launch(res["profile"]).get(k["name"])
             for arch, res in by_model.items()
             if arch in k["launches_by_mode"] and res["profile"]}
-    print(f"[15] all phases passed in {time.perf_counter() - T_START:.1f} s")
+    print(f"[16] all phases passed in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ against the one-device run from the same state on the same card.
     python3 scripts/mesh_multicard.py [CARDS [CASE ...]]
 
 CARDS defaults to 4; CASE names the cases to run (``domst``, ``lm``,
-``moe``), all of them by default.
+``moe``, ``serve``), all of them by default.
 
 One process a card (a world of CARDS ranks on a ``TCPStore`` at
 127.0.0.1), the kernels built once beforehand. Cases:
@@ -22,7 +22,21 @@ One process a card (a world of CARDS ranks on a ``TCPStore`` at
   remat, the FSDP rules, 3 steps on (CARDS/2, 2): launches, collectives,
   losses against one device's (bf16: 1e-2 relative), step times;
 * qwen3-moe-30b-a3b at smoke size (4 experts), float32, expert parallel
-  on (1, CARDS): losses against one device's within 1e-4 relative.
+  on (1, CARDS): losses against one device's within 1e-4 relative;
+* ``serve``: qwen2-1.5b at full width through ``InferenceEngine(mesh=)``
+  on (CARDS/2, 2), where its 2 KV heads split over "model", and on
+  (1, CARDS), where they cannot and a page's offsets split instead (the
+  ``cache_seq`` branch): float32 at 6 layers (rescaled weights) serving
+  chip_smoke's wave (4 x ~512 tokens, 32 new), the greedy streams and
+  launches equal to one device's; float32 at full depth, one decode
+  step's logits within 1e-4 of their scale of one device's on the
+  rescaled weights, and on the init law's printed beside one card's own
+  kernel-vs-plain gap there (two correct float32 runs of the init law's
+  28 layers part by tenths of the scale); bf16 at full depth, one decode
+  step's logits within 2^-5 of one device's on the rescaled weights (the
+  init law's printed), the collectives of a decode step
+  (counts and bytes each rank sends, ``launch/dryrun.py::RankCounter``)
+  and the decode step's time on and off the mesh.
 
 Rank 0 prints one JSON line last; a failed check exits non-zero.
 """
@@ -42,6 +56,8 @@ sys.path.insert(0, str(ROOT))
 DOMST_R, DOMST_DAYS, DOMST_STEPS, BATCH = 24, 400, 9, 32
 LM = {"arch": "mamba2-130m", "batch": 8, "seq": 1024, "steps": 3}
 MOE = {"arch": "qwen3-moe-30b-a3b", "batch": 4, "seq": 64, "steps": 3}
+SERVE = {"arch": "qwen2-1.5b", "f32_depth": 6, "decode_steps": 8}
+F32_FULL_REL = 1e-4     # float32 decode logits at full depth, of their scale
 
 
 def _median(v):
@@ -169,6 +185,161 @@ def lm_case(spec, mesh_shape, dev, dtype, fsdp, rel):
     return res, ok
 
 
+def _decode_logits(eng, state):
+    """One paged decode step's float32 logits over the real vocab, whole,
+    from ``state`` (which the step advances)."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+    with torch.no_grad(), eng._context():
+        act = torch.ones(eng.slots, dtype=torch.bool, device=eng.device)
+        lg, _ = tfm.decode_step_paged(
+            state.params, eng.cfg,
+            {"tokens": eng._batch_input(shd.full(state.last_tok)[:, None])},
+            state.cache, shd.full(state.positions),
+            shd.full(state.page_table), act, dtype=eng.dtype, ops=eng.ops)
+        return shd.full(lg)[:, :eng.cfg.vocab_size].float().cpu()
+
+
+def _wave_state(cfg, params, dtype, mesh, dev, extra_len=0, ops=None):
+    """An engine on ``mesh`` (None: one card) and its state with
+    chip_smoke's wave inserted whole, a request a slot, room for
+    ``extra_len`` more tokens."""
+    from chip_smoke import STEP_LENS, request_inputs, request_len, requests_of
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import InferenceEngine
+    reqs = requests_of(cfg.vocab_size, STEP_LENS, 32)
+    eng = InferenceEngine(cfg, mesh=mesh, slots=len(reqs),
+                          max_len=max(request_len(r) for r in reqs)
+                          + extra_len + 1, page_size=16, dtype=dtype,
+                          device=dev, ops=ops or tfm.KERNELS)
+    state = eng.init_state(params)
+    for s, r in enumerate(reqs):
+        state = eng.assign_pages(state, s, list(range(
+            s * eng.pages_per_slot, (s + 1) * eng.pages_per_slot)))
+        state, _ = eng.insert(state, request_inputs(r), s)
+    return eng, state
+
+
+def _rel_argmax(a, b):
+    """|a - b|'s largest entry over b's largest |entry|, and whether each
+    row's argmax agrees."""
+    return (float((a - b).abs().max() / b.abs().max()),
+            (a.argmax(-1) == b.argmax(-1)).tolist())
+
+
+def serve_case(mesh_shape, dev):
+    import torch
+    from chip_smoke import (
+        REL_LOGITS_BF16, STEP_LENS, first_parting, half_depth, requests_of,
+        serve_once, well_conditioned)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import RankCounter
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from torch.distributed.tensor.debug import CommDebugMode
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    cfg = get_config(SERVE["arch"])
+    p32 = tfm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    wave = lambda: requests_of(cfg.vocab_size, STEP_LENS, 32)
+    cfg6, p6 = half_depth(cfg, p32, SERVE["f32_depth"])
+    well = well_conditioned(cfg6, p6)
+    f32 = {where: serve_once(cfg6, dev, well, torch.float32, {"mesh": m},
+                             wave())
+           for where, m in (("one device", None), ("mesh", mesh))}
+    del well, p6
+    # float32 at full depth: one decode step's logits on and off the mesh,
+    # on the rescaled weights (held within F32_FULL_REL) and on the init
+    # law's (printed), beside one card's own kernel-vs-plain gap on the
+    # init law's: how far two correct float32 runs of the 28 layers part
+    f32_full = {}
+    for kind, params in (("rescaled", well_conditioned(cfg, p32)),
+                         ("init", p32)):
+        for where, m, ops in (("one device", None, None),
+                              ("mesh", mesh, None),
+                              ("plain", None, tfm.PLAIN)):
+            if kind == "rescaled" and where == "plain":
+                continue
+            eng, state = _wave_state(cfg, params, torch.float32, m, dev,
+                                     ops=ops)
+            f32_full[kind, where] = _decode_logits(eng, state)
+            del eng, state
+            torch.cuda.empty_cache()
+        del params
+    pbf = tfm.cast_params(p32, torch.bfloat16, dev)
+    del p32
+    bf = {}
+    # the init law's weights make the 28-layer model chaotic in bf16 (a
+    # rank's partial sums round otherwise than one card's whole ones and
+    # the difference grows layer by layer): their logits are printed, the
+    # rescaled weights' (unit-variance attention projections) are held
+    for kind, params in (("init", pbf),
+                         ("rescaled", well_conditioned(cfg, pbf))):
+        for where, m in (("one device", None), ("mesh", mesh)):
+            eng, state = _wave_state(cfg, params, torch.bfloat16, m, dev,
+                                     extra_len=SERVE["decode_steps"])
+            rec = {"logits": _decode_logits(eng, state)}
+            if kind == "init":
+                times = []
+                for _ in range(SERVE["decode_steps"]):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    state, _ = eng.decode(state)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t)
+                rec["decode_step_s"] = times
+                if m is not None:
+                    counter = RankCounter()
+                    with counter, CommDebugMode() as cm:
+                        state, _ = eng.decode(state)
+                    rec["comms_a_step"] = int(cm.get_total_counts())
+                    rec["comms_by_op"] = {str(k): v for k, v in
+                                          cm.get_comm_counts().items()}
+                    rec["send_bytes_a_step"] = dict(counter.bytes)
+            bf[kind, where] = rec
+            del eng, state
+            torch.cuda.empty_cache()
+
+    def logits_err(kind):
+        return _rel_argmax(bf[kind, "mesh"]["logits"],
+                           bf[kind, "one device"]["logits"])
+    rel, argmax = logits_err("rescaled")
+    rel_init, argmax_init = logits_err("init")
+    f32_rel = {kind: _rel_argmax(f32_full[kind, "mesh"],
+                                 f32_full[kind, "one device"])
+               for kind in ("rescaled", "init")}
+    f32_plain = _rel_argmax(f32_full["init", "plain"],
+                            f32_full["init", "one device"])
+    same = f32["mesh"]["gen"] == f32["one device"]["gen"]
+    run = {w: bf["init", w] for w in ("one device", "mesh")}
+    res = {"arch": cfg.name, "mesh": list(mesh_shape),
+           "f32_layers": SERVE["f32_depth"], "f32_streams_equal": same,
+           "f32_first_parting": first_parting(f32["mesh"]["gen"],
+                                              f32["one device"]["gen"]),
+           "f32_launches": {w: r["launches"] for w, r in f32.items()},
+           "f32_tok_per_s": {w: r["tok_per_s"] for w, r in f32.items()},
+           "f32_full_depth_logits_rel_err": {
+               k: v[0] for k, v in f32_rel.items()},
+           "f32_full_depth_argmax_equal": {
+               k: v[1] for k, v in f32_rel.items()},
+           "f32_full_depth_init_kernel_vs_plain_one_device": {
+               "rel_err": f32_plain[0], "argmax_equal": f32_plain[1]},
+           "bf16_decode_logits_rel_err": rel, "bf16_argmax_equal": argmax,
+           "bf16_init_weights_logits_rel_err": rel_init,
+           "bf16_init_weights_argmax_equal": argmax_init,
+           "decode_step_p50_s": {w: _median(r["decode_step_s"][1:])
+                                 for w, r in run.items()},
+           "decode_step_s": {w: r["decode_step_s"] for w, r in run.items()},
+           "comms_a_step": run["mesh"]["comms_a_step"],
+           "comms_by_op": run["mesh"]["comms_by_op"],
+           "send_bytes_a_step": run["mesh"]["send_bytes_a_step"]}
+    ok = (same and rel <= REL_LOGITS_BF16
+          and f32_rel["rescaled"][0] <= F32_FULL_REL
+          and f32["mesh"]["launches"] == f32["one device"]["launches"]
+          and f32["mesh"]["launches"]["paged_attn"] > 0)
+    return res, ok
+
+
 def worker(rank: int, world: int, port: int, only=()) -> None:
     import torch
     import torch.distributed as dist
@@ -187,6 +358,8 @@ def worker(rank: int, world: int, port: int, only=()) -> None:
                 LM, s, dev, torch.bfloat16, True, 1e-2)),
             ("moe", (1, world), lambda s: lm_case(
                 MOE, s, dev, torch.float32, False, 1e-4)),
+            ("serve", (world // 2, 2), lambda s: serve_case(s, dev)),
+            ("serve", (1, world), lambda s: serve_case(s, dev)),
         ]
         for name, shape, run in cases:
             if only and name not in only:
@@ -204,8 +377,13 @@ def worker(rank: int, world: int, port: int, only=()) -> None:
     finally:
         dist.destroy_process_group()
     if rank == 0:
+        import subprocess
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.split("\n")
         print(json.dumps({"cards": world,
                           "card": torch.cuda.get_device_name(0),
+                          "name_power_limit": [x for x in smi if x][:world],
                           "results": results, "failed": failed}))
     if failed:
         sys.exit(1)

@@ -4,16 +4,18 @@ and the front-end (VLM, audio) paths read of the reference's
 ``configs/base.py``.
 
 ``MoEConfig``, ``SSMConfig``, ``RGLRUConfig``, ``PixConConfig``,
-``DomSTConfig``, ``ModelConfig`` and ``TrainConfig`` are field-for-field
-copies, with the same defaults and the same helpers (``d_inner``,
-``num_heads``, ``padded_vocab``, ``resolved_head_dim``, ``layer_kinds``,
-``supports_decode``). Configs are pure data and never touch a device.
+``DomSTConfig``, ``ModelConfig``, ``TrainConfig`` and ``ShapeConfig``
+(with ``INPUT_SHAPES``, the launch tooling's four input shapes) are
+field-for-field copies, with the same defaults and the same helpers
+(``d_inner``, ``num_heads``, ``padded_vocab``, ``resolved_head_dim``,
+``layer_kinds``, ``supports_decode``, ``sub_quadratic``). Configs are
+pure data and never touch a device.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Mapping, Optional, Sequence, Tuple
 
 # Layer kinds understood by models/transformer.py
 ATTN_GLOBAL = "global"          # full (causal or bidirectional) attention
@@ -183,6 +185,11 @@ class ModelConfig:
     def supports_decode(self) -> bool:
         return self.causal and self.family not in ("encoder", "audio", "domst")
 
+    def sub_quadratic(self) -> bool:
+        """True if no layer needs a full-context KV cache (long_500k gate)."""
+        kinds = set(self.layer_kinds())
+        return ATTN_GLOBAL not in kinds
+
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -207,6 +214,24 @@ class TrainConfig:
     grad_accum: int = 1               # microbatches per step (activation memory / A)
     seed: int = 0
     fsdp: bool = False                # on a mesh: params and moments' embed over the data axes
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the 4 assigned input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+
+INPUT_SHAPES: Mapping[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

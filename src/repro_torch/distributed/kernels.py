@@ -12,7 +12,17 @@ work local.
   Where the KV heads are split alike, each rank's query groups meet their
   own KV heads. Where the KV heads are whole (``kv_heads`` does not divide
   the model axis) and each rank's query heads fall in one KV group, the
-  rank slices that KV head; otherwise the query heads are gathered.
+  rank slices that KV head; otherwise the query heads are gathered
+  (``_head_plan``). A global layer's prefill attention runs so too;
+* paged attention (serving) takes the same head plan against the page
+  pool, whose page axis is gathered whole (a slot's pages may be on any
+  rank: the page table holds global ids, mapped here to the storage rows
+  of a pool whose shards each keep a sink, ``models/attention.py``) and
+  whose within-page offsets are gathered where the ``cache_seq`` rule
+  splits them; the page table and the query positions follow the
+  queries' batch split;
+* the contiguous ring's masked attention (``attend_masked``) likewise,
+  the ring's sequence axis gathered where ``cache_seq`` splits it.
 
 Any other split (a sequence split) is gathered before the call. A weight
 that is whole on a mesh dim splitting the batch gets a Partial gradient
@@ -22,10 +32,12 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import torch
+
 from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.distributed.sharding import (
-    local_kernel, mesh_shape, weight_grad_placements,
+    distribute, local_kernel, mesh_shape, weight_grad_placements,
 )
 
 
@@ -94,14 +106,13 @@ def ssd_chunked(scan: Callable, xh, dt, A, Bm, Cm, D):
                         [at, at, ht, bt, bt, ht], [at, st], grads=grads)
 
 
-def local_attention(local: Callable, q, k, v, **kw):
-    """``local(q (B,S,Hq,D), k, v (B,S,Hkv,D), **kw)`` on local blocks of
-    batch and heads -> (B,S,Hq,D) placed as the query blocks."""
-    mesh = q.device_mesh
-    names = mesh_shape(mesh).axis_names
-    qt = _keep(q.placements, (0, 2))
-    kt = _keep(k.placements, (0, 2))
-    Hq, Hkv = q.shape[2], k.shape[2]
+def _head_plan(mesh, qt, kt, Hq: int, Hkv: int):
+    """Placements of the queries and of a KV tensor (heads at dim 2 of
+    both) under which each rank's query heads meet their KV heads: a KV
+    head split where the queries are whole is gathered; where the queries
+    are split and the KV heads whole, the rank slices its one KV head if
+    its query heads lie in one group (``slice_on`` = (mesh dim, query
+    heads a rank)), else the queries are gathered."""
     group = Hq // Hkv
     slice_on = None
     for i, (pq, pk) in enumerate(zip(qt, kt)):
@@ -115,6 +126,31 @@ def local_attention(local: Callable, q, k, v, **kw):
         elif isinstance(pk, Shard) and pk.dim == 2 and not (
                 isinstance(pq, Shard) and pq.dim == 2):
             kt = kt[:i] + (Replicate(),) + kt[i + 1:]
+    return qt, kt, slice_on
+
+
+def _kv_head(mesh, slice_on, group: int):
+    """(first, last + 1) of the KV heads this rank's queries read."""
+    if slice_on is None:
+        return None
+    i, per_rank = slice_on
+    head = mesh.get_local_rank(mesh_shape(mesh).axis_names[i]) \
+        * per_rank // group
+    return head, head + 1
+
+
+def _batch_of(pl):
+    """Placements keeping only a split of dim 0."""
+    return tuple(p if p == Shard(0) else Replicate() for p in pl)
+
+
+def local_attention(local: Callable, q, k, v, **kw):
+    """``local(q (B,S,Hq,D), k, v (B,S,Hkv,D), **kw)`` on local blocks of
+    batch and heads -> (B,S,Hq,D) placed as the query blocks."""
+    mesh = q.device_mesh
+    Hq, Hkv = q.shape[2], k.shape[2]
+    qt, kt, slice_on = _head_plan(mesh, _keep(q.placements, (0, 2)),
+                                  _keep(k.placements, (0, 2)), Hq, Hkv)
     # the batch split must agree
     kt = tuple(pq if isinstance(pq, Shard) and pq.dim == 0 else pk
                for pq, pk in zip(qt, kt))
@@ -123,10 +159,8 @@ def local_attention(local: Callable, q, k, v, **kw):
             lambda ql, kl, vl: local(ql.contiguous(), kl.contiguous(),
                                      vl.contiguous(), **kw),
             [q, k, v], [qt, kt, kt], [qt])
-    i, per_rank = slice_on
-    rank = mesh.get_local_rank(names[i])
-    head = rank * per_rank // group
-    kg = tuple(Partial() if j == i else p for j, p in enumerate(kt))
+    head, _ = _kv_head(mesh, slice_on, Hq // Hkv)
+    kg = tuple(Partial() if j == slice_on[0] else p for j, p in enumerate(kt))
 
     def body(ql, kl, vl):
         return local(ql.contiguous(), kl[:, :, head:head + 1].contiguous(),
@@ -134,3 +168,55 @@ def local_attention(local: Callable, q, k, v, **kw):
     return local_kernel(body, [q, k, v], [qt, kt, kt], [qt],
                         grads=[qt, kg, kg])
 
+
+def paged_attention(attn: Callable, q, pool, page_rows, qpos, **kw):
+    """``attn(q (B,T,Hq,D), k_pool, v_pool, pos_pool, page_rows (B,n),
+    qpos (B,T), **kw)``, the paged-attention kernel's wrapper, on local
+    blocks -> (B,T,Hq,D) placed as the query blocks. ``pool`` is a
+    ``PagedKVCache`` of DTensors, ``page_rows`` and ``qpos`` whole plain
+    tensors (global page ids)."""
+    mesh = q.device_mesh
+    Hq, Hkv = q.shape[2], pool.k.shape[2]
+    qt, kt, slice_on = _head_plan(mesh, _keep(q.placements, (0, 2)),
+                                  _keep(pool.k.placements, (2,)), Hq, Hkv)
+    bt = _batch_of(qt)
+    whole = (Replicate(),) * mesh.ndim
+    span = _kv_head(mesh, slice_on, Hq // Hkv)
+    n = pool.per_shard
+
+    def body(ql, kl, vl, pl, rl, ql_pos):
+        rows = torch.where(rl >= 0, rl + torch.div(rl, n, rounding_mode="floor"),
+                           rl)
+        if span is not None:
+            kl = kl[:, :, span[0]:span[1]].contiguous()
+            vl = vl[:, :, span[0]:span[1]].contiguous()
+        return attn(ql.contiguous(), kl, vl, pl, rows.contiguous(),
+                    ql_pos.contiguous(), **kw)
+    return local_kernel(
+        body, [q, pool.k, pool.v, pool.pos, distribute(page_rows, mesh, bt),
+               distribute(qpos, mesh, bt)],
+        [qt, kt, kt, whole, bt, bt], [qt])
+
+
+def attend_masked(fn: Callable, q, k_all, v_all, kp, qpos):
+    """``fn(q (B,Sq,Hq,D), k_all, v_all (B,L,Hkv,D), kp (B,L), qpos
+    (B,Sq))``, the ring's masked attention, on local blocks of batch and
+    heads, the ring's sequence axis whole -> placed as the query blocks.
+    ``qpos`` is a whole plain tensor."""
+    mesh = q.device_mesh
+    Hq, Hkv = q.shape[2], k_all.shape[2]
+    qt, kt, slice_on = _head_plan(mesh, _keep(q.placements, (0, 2)),
+                                  _keep(k_all.placements, (0, 2)), Hq, Hkv)
+    # the ring's rows follow the queries' batch split
+    kt = tuple(Shard(0) if pq == Shard(0) else
+               (Replicate() if pk == Shard(0) else pk)
+               for pq, pk in zip(qt, kt))
+    bt = _batch_of(qt)
+    span = _kv_head(mesh, slice_on, Hq // Hkv)
+
+    def body(ql, kl, vl, pl, qpl):
+        if span is not None:
+            kl, vl = kl[:, :, span[0]:span[1]], vl[:, :, span[0]:span[1]]
+        return fn(ql, kl, vl, pl, qpl)
+    return local_kernel(body, [q, k_all, v_all, kp, distribute(qpos, mesh, bt)],
+                        [qt, kt, kt, bt, bt], [qt])

@@ -241,6 +241,143 @@ def full_host(x) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+def shard_range(x: DTensor, dim: int) -> Tuple[int, int]:
+    """(start, size) of this rank's block of ``x`` along ``dim`` (a dim
+    split over several mesh dims is split by the first, then each block by
+    the next, as ``local_slice`` cuts it)."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    start, size = 0, x.shape[dim]
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            size //= mesh.size(i)
+            start += coord[i] * size
+    return start, size
+
+
+def block_of(value: torch.Tensor, x: DTensor, lead: int = 0) -> torch.Tensor:
+    """This rank's block of ``value``, a full tensor whose dims are those of
+    ``x`` from dim ``lead`` on (``value`` may have extra leading dims of its
+    own: its last ``x.dim() - lead`` dims are cut as ``x``'s)."""
+    extra = value.dim() - (x.dim() - lead)
+    for d in range(lead, x.dim()):
+        start, size = shard_range(x, d)
+        if size != x.shape[d]:
+            value = value.narrow(extra + d - lead, start, size)
+    return value
+
+
+class Rows:
+    """Row ids along dim 0 for ``put_rows``/``take_rows``: the host ints,
+    and on a plain tensor their index on its device, made once however
+    many tensors one call writes or reads (one id indexes with no copy)."""
+
+    def __init__(self, ids):
+        self.ids = [int(r) for r in ids]
+        self._index = {}
+
+    def index(self, device):
+        if len(self.ids) == 1 and self.ids[0] >= 0:
+            return slice(self.ids[0], self.ids[0] + 1)
+        if device not in self._index:
+            self._index[device] = torch.tensor(self.ids, dtype=torch.long,
+                                               device=device)
+        return self._index[device]
+
+
+def _rows(rows) -> Rows:
+    return rows if isinstance(rows, Rows) else Rows(rows)
+
+
+def put_rows(x, rows, value: torch.Tensor) -> None:
+    """``x[rows] = value`` in place, for a plain tensor or, on local blocks,
+    a DTensor: ``rows`` host ints along dim 0 (or their ``Rows``), ``value``
+    the full rows (len(rows), *x.shape[1:]); each rank writes the rows it
+    holds, the part of each in its block. No collective."""
+    rows = _rows(rows)
+    if not isinstance(x, DTensor):
+        x[rows.index(x.device)] = value.to(device=x.device, dtype=x.dtype)
+        return
+    start, size = shard_range(x, 0)
+    mine = [(i, r - start) for i, r in enumerate(rows.ids)
+            if start <= r < start + size]
+    if not mine:
+        return
+    src = block_of(value.to(device=x.to_local().device, dtype=x.dtype), x,
+                   lead=1)
+    loc = x.to_local()
+    idx = torch.tensor([m[1] for m in mine], device=loc.device)
+    loc[idx] = src[torch.tensor([m[0] for m in mine], device=src.device)]
+
+
+def take_rows(x, rows) -> torch.Tensor:
+    """``x[rows]`` as a plain tensor whole on every rank (a copy), for a
+    plain tensor or a DTensor: ``rows`` host ints along dim 0 (or their
+    ``Rows``). On a mesh each rank takes the rows it holds (zeros for the
+    others), a Partial sum over the mesh dims that split dim 0 brings them
+    together, and the other splits are gathered: the collective moves just
+    these rows."""
+    rows = _rows(rows)
+    if not isinstance(x, DTensor):
+        idx = rows.index(x.device)
+        return x[idx].clone() if isinstance(idx, slice) else x[idx]
+    loc = x.to_local()
+    start, size = shard_range(x, 0)
+    held = [start <= r < start + size for r in rows.ids]
+    idx = torch.tensor([r - start if h else 0
+                        for r, h in zip(rows.ids, held)], dtype=torch.long,
+                       device=loc.device)
+    mask = torch.tensor(held, device=loc.device).reshape(
+        (-1,) + (1,) * (loc.dim() - 1))
+    part = torch.where(mask, loc[idx], torch.zeros((), dtype=loc.dtype,
+                                                   device=loc.device))
+    shape = (len(rows.ids),) + tuple(x.shape[1:])
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    pl = tuple(Partial() if p == Shard(0) else p for p in x.placements)
+    return DTensor.from_local(part, x.device_mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=stride).full_tensor()
+
+
+def rows_like(value: torch.Tensor, x: DTensor) -> DTensor:
+    """The DTensor of whole rows ``value`` (k, *x.shape[1:]) placed as
+    ``x`` but for dim 0, which is whole: the rows of a slot as a step on
+    one slot takes them."""
+    pl = tuple(Replicate() if p == Shard(0) else p for p in x.placements)
+    return distribute(value, x.device_mesh, pl, value.device)
+
+
+def stacked_like(x, like):
+    """``x``, rows of ``like`` stacked on a new leading axis, placed as
+    ``like`` (a plain tensor passes through; a DTensor already so placed
+    moves nothing)."""
+    if not isinstance(like, DTensor):
+        return x
+    pl = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p
+               for p in like.placements)
+    return x.redistribute(like.device_mesh, pl)
+
+
+def local(x) -> torch.Tensor:
+    """``x``'s local block (``x`` itself for a plain tensor)."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def full(x) -> torch.Tensor:
+    """``x``'s full value as a plain tensor on its device (a collective for
+    a split DTensor)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def assign(x, value: torch.Tensor) -> None:
+    """``x[...] = value`` in place from the full ``value``: on a DTensor,
+    each rank copies its block (no collective)."""
+    if isinstance(x, DTensor):
+        x.to_local().copy_(block_of(value, x))
+    else:
+        x.copy_(value)
+
+
 def to_placements(x, placements: Placements):
     """``x`` redistributed to ``placements`` (the identity where it already
     has them, and on a plain tensor)."""

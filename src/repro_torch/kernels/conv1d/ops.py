@@ -34,7 +34,7 @@ the conv with the plain version from the saved inputs and differentiates
 it (x, w, b and a given tail). The new tail is non-differentiable: the
 training forward discards it. The JAX kernel has no backward either: the
 reference trains through ``jax.grad`` of its plain model code. Serving,
-under ``inference_mode``, keeps the direct launch.
+with grad mode off, keeps the direct launch.
 """
 from __future__ import annotations
 

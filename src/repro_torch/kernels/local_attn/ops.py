@@ -44,7 +44,7 @@ recomputes the attention with the plain version from the saved q, k and
 v (``window``, ``causal`` and ``softcap`` passed through) and
 differentiates it. The JAX kernel has no backward either: the reference
 trains through ``jax.grad`` of its plain ``local_attention``. Serving,
-under ``inference_mode``, keeps the direct launch.
+with grad mode off, keeps the direct launch.
 """
 from __future__ import annotations
 

@@ -36,7 +36,7 @@ both outputs with the plain version from the saved inputs and
 differentiates them (``Cc``, ``Bc``, ``xdt`` and ``dA_cs``, through
 ``y_diag`` and ``states``). The JAX kernel has no backward either: the
 reference trains through ``jax.grad`` of its plain ``ssd_chunked``.
-Serving, under ``inference_mode``, keeps the direct launch.
+Serving, with grad mode off, keeps the direct launch.
 """
 from __future__ import annotations
 

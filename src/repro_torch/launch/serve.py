@@ -189,6 +189,10 @@ def make_requests(cfg, args) -> list:
 def make_drafter(args, cfg, engine):
     """The ``--drafter`` policy: prompt lookup, or a second model (by
     default the target's own config) on its own paged engine."""
+    if not engine.paged:
+        raise SystemExit("--spec-k > 0 requires the paged cache "
+                         "(--page-size > 0); --spec-k 0 on the contiguous "
+                         "layout is the parity baseline")
     if args.drafter == "ngram":
         return NgramDrafter()
     draft_cfg = get_config(args.draft_config or args.arch)
@@ -219,7 +223,8 @@ def serve_lm(args) -> dict:
     max_len = args.max_len or max(
         len(r.prompt) + r.max_new + (cfg.num_patches or 0) for r in reqs)
     engine = InferenceEngine(cfg, slots=args.batch_size, max_len=max_len,
-                             page_size=args.page_size,
+                             paged=args.page_size > 0,
+                             page_size=args.page_size or 16,
                              num_pages=args.num_pages or None,
                              prefill_chunk=args.prefill_chunk,
                              device=args.device)
@@ -231,6 +236,9 @@ def serve_lm(args) -> dict:
         params = engine.restore_params(args.ckpt, params)
     state = engine.init_state(params)
     drafter = make_drafter(args, cfg, engine) if args.spec_k else None
+    if (args.prefix_cache or args.preempt) and not engine.paged:
+        raise SystemExit("--prefix-cache/--preempt are page-pool policies; "
+                         "they require the paged cache (--page-size > 0)")
     registry, tracer = MetricRegistry(), Tracer()
     sched = Scheduler(engine, state,
                       eos_id=args.eos if args.eos >= 0 else None,
@@ -259,7 +267,7 @@ def serve_lm(args) -> dict:
                st["prefill_tokens"] / max(st["prefill_s"], 1e-9), 1),
            "decode_tok_per_s": round(
                st["decode_tokens"] / max(st["decode_s"], 1e-9), 1),
-           "paged": True, "page_size": engine.page_size,
+           "paged": engine.paged, "page_size": engine.page_size,
            "num_pages": engine.num_pages,
            "prefill_chunk": engine.prefill_chunk,
            "prefill_chunks": st["prefill_chunks"],
@@ -351,7 +359,8 @@ def main(argv=None) -> dict:
     lm.add_argument("--max-len", type=int, default=0,
                     help="cache length (0 = longest prompt + gen)")
     lm.add_argument("--page-size", type=int, default=16,
-                    help="paged KV cache page size in tokens")
+                    help="paged KV cache page size in tokens (0 = the "
+                         "contiguous slot-major cache, the parity baseline)")
     lm.add_argument("--num-pages", type=int, default=0,
                     help="page-pool size (0 = slots * ceil(max_len/page))")
     lm.add_argument("--prefill-chunk", type=int, default=0,

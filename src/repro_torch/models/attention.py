@@ -17,7 +17,12 @@ Layouts are BSHD: q (B, S, Hq, D); k/v (B, S, Hkv, D).
 * ``paged_attend`` and the three paged paths (decode, multi-token verify,
   chunked prefill) — every attention over the page pool goes through
   ``kernels/paged_attn`` (the Hopper kernel on the card, its plain
-  version on the CPU).
+  version on the CPU);
+* the contiguous ring (``KVCache``, the reference's parity baseline):
+  ``decode_attention`` writes one token a row at ``position % L`` and
+  attends through ``attend_cached``/``attend_masked``, in plain torch ops
+  as the reference computes them in plain JAX (no Pallas kernel replaces
+  them).
 
 Two differences from the reference, both about state:
 
@@ -30,6 +35,19 @@ Two differences from the reference, both about state:
   page P is a sink that takes every invalid write. No page table names
   it, so nothing reads it. Filtering the writes instead would cost a
   device-to-host synchronisation on every scatter on the card.
+
+On a mesh (DTensor params and caches, ``serve/engine.py`` with ``mesh=``)
+the rules put a pool's pages on the batch axes ("pages") and its offsets
+or KV heads on "model" ("cache_seq" / "kv_heads"), a ring's slots on the
+batch axes. Cache writes never go through DTensor's ``index_put``: each
+rank writes, in its local block, the entries it holds (``_write_local``,
+``_write_ring``). Each shard of a pool's page axis keeps its OWN sink
+after its pages: a pool of P pages on ``n`` shards is stored as ``n``
+blocks of ``P/n + 1`` pages (global page ``g`` at storage row
+``g + g // (P/n)``, ``storage_ids``), so that the split divides and each
+rank drops the writes of pages it does not hold into its sink. With one
+shard that is the one-device layout. Reads go through
+``distributed/kernels.py`` on local blocks.
 """
 from __future__ import annotations
 
@@ -47,6 +65,13 @@ from repro_torch.kernels.paged_attn.ops import paged_attention_fused
 from repro_torch.models.layers import (
     NEG_INF, apply_norm, apply_rope, norm_specs,
 )
+
+
+def _shards(t) -> int:
+    """Blocks of ``t``'s dim 0 on a mesh (1 for a plain tensor)."""
+    if not shd.is_distributed(t):
+        return 1
+    return t.shape[0] // shd.shard_range(t, 0)[1]
 
 
 def param_specs(cfg: ModelConfig):
@@ -214,7 +239,8 @@ def attention_block(params, cfg: ModelConfig, x: torch.Tensor, *, kind: str,
     passed only to check the kernel's run on the card), with
     ``window=cfg.window`` and ``softcap=cfg.attn_softcap`` (gemma2's 50,
     applied to the float32 scores before the mask, as the reference's
-    ``local_attention`` does)."""
+    ``local_attention`` does). On a mesh each runs on local blocks of
+    batch and heads (``distributed/kernels.py::local_attention``)."""
     if kind not in ("global", "local"):
         raise ValueError(kind)
     B, S, _ = x.shape
@@ -226,12 +252,13 @@ def attention_block(params, cfg: ModelConfig, x: torch.Tensor, *, kind: str,
         o = (dk.local_attention(local, q, k, v, **kw)
              if shd.is_distributed(q) else
              local(q.contiguous(), k.contiguous(), v.contiguous(), **kw))
-    elif return_kv:
-        o = flash_attention(q, k, v, causal=cfg.causal,
-                            softcap_val=cfg.attn_softcap)
     else:
-        o = blockq_attention(q, k, v, causal=cfg.causal,
-                             softcap_val=cfg.attn_softcap)
+        # a global layer: flash attention for prefill, block-Q for
+        # training; on a mesh on local blocks of batch and heads
+        fn = flash_attention if return_kv else blockq_attention
+        kw = dict(causal=cfg.causal, softcap_val=cfg.attn_softcap)
+        o = (dk.local_attention(lambda a, b, c: fn(a, b, c, **kw), q, k, v)
+             if shd.is_distributed(q) else fn(q, k, v, **kw))
     out = out_project(params, o)
     return (out, (k, v)) if return_kv else out
 
@@ -243,6 +270,15 @@ class KVCache(NamedTuple):
     k: torch.Tensor          # (B, L, Hkv, D)
     v: torch.Tensor          # (B, L, Hkv, D)
     pos: torch.Tensor        # (B, L) absolute position of each slot, -1 = empty
+
+
+def kv_cache_axes() -> KVCache:
+    """Logical axes of each leaf of a ring."""
+    return KVCache(
+        k=("batch", "cache_seq", "kv_heads", "head_dim"),
+        v=("batch", "cache_seq", "kv_heads", "head_dim"),
+        pos=("batch", "cache_seq"),
+    )
 
 
 def init_kv_cache(batch: int, length: int, hkv: int, dh: int,
@@ -264,7 +300,10 @@ def cache_length(cfg: ModelConfig, kind: str, max_len: int) -> int:
 def fill_cache_from_prefill(cache: KVCache, k: torch.Tensor,
                             v: torch.Tensor) -> KVCache:
     """Write a full prefill's K/V (B,S,Hkv,D) into a length-L ring cache,
-    in place."""
+    in place. On a mesh the ring is filled on each rank's block of rows
+    and heads and placed as ``k`` (``_fill_local``; no collective)."""
+    if shd.is_distributed(k):
+        return _fill_local(cache, k, v)
     B, S = k.shape[0], k.shape[1]
     L = cache.k.shape[1]
     take = min(S, L)
@@ -274,6 +313,125 @@ def fill_cache_from_prefill(cache: KVCache, k: torch.Tensor,
     cache.v[:, slots] = v[:, S - take:].to(cache.v.dtype)
     cache.pos[:, slots] = pos_t[None, :].expand(B, take)
     return cache
+
+
+def _fill_local(cache: KVCache, k, v) -> KVCache:
+    """``fill_cache_from_prefill`` of DTensor ``k``/``v`` (B,S,Hkv,D)
+    split on rows and heads, never on S: each rank fills the ring of its
+    block, and the ring's leaves are DTensors placed as ``k`` (``pos`` as
+    its rows)."""
+    kl, vl = k.to_local(), v.to_local()
+    L = cache.k.shape[1]
+    ring = fill_cache_from_prefill(init_kv_cache(
+        kl.shape[0], L, kl.shape[2], kl.shape[3], dtype=cache.k.dtype,
+        device=kl.device), kl, vl)
+    mesh = k.device_mesh
+    rows = tuple(p if p == shd.Shard(0) else shd.Replicate()
+                 for p in k.placements)
+
+    def wrap(t, pl, shape):
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        return shd.DTensor.from_local(t, mesh, pl, run_check=False,
+                                      shape=torch.Size(shape), stride=stride)
+    full = (k.shape[0], L) + tuple(k.shape[2:])
+    return KVCache(wrap(ring.k, k.placements, full),
+                   wrap(ring.v, v.placements, full),
+                   wrap(ring.pos, rows, full[:2]))
+
+
+def attend_masked(cfg: ModelConfig, q: torch.Tensor, k_all: torch.Tensor,
+                  v_all: torch.Tensor, kp: torch.Tensor, qpos: torch.Tensor, *,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Projection-free core of :func:`attend_cached`: q (B,Sq,Hq,D)
+    against cache entries k/v (B,L,Hkv,D) whose absolute positions are kp
+    (B,L), -1 = empty -> (B,Sq,Hq,D). The reference's "lax counterpart" of
+    the paged kernel, in plain torch ops: scores in q's dtype, then float32
+    times ``1/sqrt(D)``, the softcap, the position mask (causal, window),
+    a softmax, ``p`` in q's dtype in the P.V product."""
+    B, Sq, Hq, dh = q.shape
+    Hkv = k_all.shape[2]
+    G = Hq // Hkv
+    qr = q.reshape(B, Sq, Hkv, G, dh)
+    scale = 1.0 / math.sqrt(dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr,
+                     k_all.to(q.dtype)).float() * scale
+    if cfg.attn_softcap:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    kpb = kp[:, None, None, None, :]                            # (B,1,1,1,L)
+    pq = qpos[:, None, None, :, None]                           # (B,1,1,Sq,1)
+    mask = (kpb >= 0) & (kpb <= pq)
+    if window is not None:
+        mask = mask & (pq - kpb < window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype), v_all.to(q.dtype))
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, dh)
+
+
+def attend_cached(params, cfg: ModelConfig, q: torch.Tensor,
+                  k_all: torch.Tensor, v_all: torch.Tensor, kp: torch.Tensor,
+                  qpos: torch.Tensor, *,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Masked attention of q (B,Sq,Hq,D) against cache entries k/v
+    (B,L,Hkv,D) at absolute positions kp (B,L), -1 = empty, and the output
+    projection; causality and the window come from the positions alone.
+    On a mesh it runs on local blocks of batch and heads, the ring's
+    sequence axis gathered."""
+    if shd.is_distributed(q):
+        o = dk.attend_masked(
+            lambda a, b, c, d, e: attend_masked(cfg, a, b, c, d, e,
+                                                window=window),
+            q, k_all, v_all, kp, qpos)
+    else:
+        o = attend_masked(cfg, q, k_all, v_all, kp, qpos, window=window)
+    return out_project(params, o)
+
+
+def _write_ring(cache: KVCache, row_slot: torch.Tensor, k_new, v_new,
+                pos: torch.Tensor) -> None:
+    """Write one entry a row, row b at ring index ``row_slot[b]``, in
+    place. On a mesh each rank writes its rows' entries that fall in its
+    block of the ring (an entry elsewhere writes back what its clamped
+    index holds: each row has one entry, so no write is lost)."""
+    if not shd.is_distributed(cache.k):
+        bidx = torch.arange(row_slot.shape[0], device=row_slot.device)
+        cache.k[bidx, row_slot] = k_new.to(cache.k.dtype)
+        cache.v[bidx, row_slot] = v_new.to(cache.v.dtype)
+        cache.pos[bidx, row_slot] = pos.to(torch.int32)
+        return
+    b0, bn = shd.shard_range(cache.k, 0)
+    l0, ln = shd.shard_range(cache.k, 1)
+    ls = row_slot[b0:b0 + bn] - l0
+    ok = (ls >= 0) & (ls < ln)
+    li = torch.where(ok, ls, 0).long()
+    bi = torch.arange(bn, device=li.device)
+    for leaf, val in ((cache.k, k_new), (cache.v, v_new), (cache.pos, pos)):
+        loc = leaf.to_local()
+        new = shd.full(val)[b0:b0 + bn].to(loc.dtype)     # (bn, [Hkv, D])
+        if new.dim() > 1:
+            h0, hn = shd.shard_range(leaf, 2)
+            new = new.narrow(1, h0, hn)
+        old = loc[bi, li]
+        m = ok.reshape((-1,) + (1,) * (new.dim() - 1))
+        loc[bi, li] = torch.where(m, new, old)
+
+
+def decode_attention(params, cfg: ModelConfig, x: torch.Tensor,
+                     cache: KVCache, position, *,
+                     window: Optional[int] = None):
+    """One decode step against a contiguous ring. x (B,1,d); position a
+    scalar (every row at the same index) or a (B,) vector of per-row
+    indices (the engine's slots, each at its own counter). Row b's K/V
+    go into ring index ``position[b] % L``, in place; the attention reads
+    the whole ring through its positions. Returns (out (B,1,d), cache)."""
+    B = x.shape[0]
+    pos = _positions(position, B, x.device)
+    q, k_new, v_new = qkv_project(params, cfg, x, pos[:, None])
+    L = cache.k.shape[1]
+    _write_ring(cache, pos.long() % L, k_new[:, 0], v_new[:, 0], pos)
+    out = attend_cached(params, cfg, q, cache.k, cache.v, cache.pos,
+                        pos[:, None], window=window)
+    return out, cache
 
 
 # ---------------------------------------------------------------------------
@@ -291,13 +449,44 @@ class PagedKVCache(NamedTuple):
 
     @property
     def num_pages(self) -> int:
-        """Pages a page table may name; the page at this index is the sink."""
-        return self.k.shape[0] - 1
+        """Pages a page table may name (the global page id at this index is
+        the invalid one, which every shard's sink takes)."""
+        return self.k.shape[0] - _shards(self.k)
+
+    @property
+    def per_shard(self) -> int:
+        """Pages of one shard of the page axis (its sink not counted)."""
+        return self.num_pages // _shards(self.k)
+
+
+def storage_ids(pool: PagedKVCache, pages) -> list:
+    """Storage rows of the global page ids ``pages`` (host ints >= 0):
+    page ``g`` of a pool split into shards of ``n`` pages, each followed
+    by its sink, sits at row ``g + g // n``."""
+    n = pool.per_shard
+    return [int(g) + int(g) // n for g in pages]
+
+
+def paged_kv_cache_axes() -> PagedKVCache:
+    """Logical axes of each leaf of a pool: the page axis on the batch
+    axes; the within-page offset axis takes the "cache_seq" rule, so both
+    ``cache_needs_seq_shard`` branches carry over from the ring."""
+    return PagedKVCache(
+        k=("pages", "cache_seq", "kv_heads", "head_dim"),
+        v=("pages", "cache_seq", "kv_heads", "head_dim"),
+        pos=("pages", "cache_seq"),
+    )
 
 
 def init_paged_kv_cache(num_pages: int, page_size: int, hkv: int, dh: int,
-                        dtype=torch.bfloat16, device="cpu") -> PagedKVCache:
-    shape = (num_pages + 1, page_size)
+                        dtype=torch.bfloat16, device="cpu",
+                        shards: int = 1) -> PagedKVCache:
+    """An empty pool of ``num_pages`` pages in ``shards`` blocks, each
+    block's pages followed by its sink (one sink, the last page, for one
+    block)."""
+    if num_pages % shards:
+        raise ValueError(f"{num_pages} pages do not split into {shards}")
+    shape = (num_pages + shards, page_size)
     return PagedKVCache(
         k=torch.zeros(shape + (hkv, dh), dtype=dtype, device=device),
         v=torch.zeros(shape + (hkv, dh), dtype=dtype, device=device),
@@ -324,9 +513,29 @@ def _page_coords(page_rows: torch.Tensor, logical: torch.Tensor, ps: int,
 def _write(cache: PagedKVCache, phys, off, k_new, v_new, pos) -> None:
     """Scatter new entries into the pools in place (the sink takes the
     invalid ones)."""
+    if shd.is_distributed(cache.k):
+        return _write_local(cache, phys, off, k_new, v_new, pos)
     cache.k[phys, off] = k_new.to(cache.k.dtype)
     cache.v[phys, off] = v_new.to(cache.v.dtype)
     cache.pos[phys, off] = pos.to(torch.int32)
+
+
+def _write_local(cache: PagedKVCache, phys, off, k_new, v_new, pos) -> None:
+    """``_write`` on a mesh, on local blocks: the new entries are gathered
+    whole (N entries of (Hkv, D) a leaf, the collective of a write), and
+    each rank writes those whose page and offset it holds, the part of
+    their heads in its block; the rest go to its own sink."""
+    n = cache.per_shard
+    p0, _ = shd.shard_range(cache.k, 0)
+    o0, on = shd.shard_range(cache.k, 1)
+    local = phys - (p0 // (n + 1)) * n
+    ok = (phys < cache.num_pages) & (local >= 0) & (local < n) \
+        & (off >= o0) & (off < o0 + on)
+    lp = torch.where(ok, local, n)
+    lo = torch.where(ok, off - o0, 0)
+    for leaf, val in ((cache.k, k_new), (cache.v, v_new), (cache.pos, pos)):
+        loc = leaf.to_local()
+        loc[lp, lo] = shd.block_of(shd.full(val).to(loc.dtype), leaf, lead=2)
 
 
 def paged_attend(params, cfg: ModelConfig, q: torch.Tensor,
@@ -337,10 +546,13 @@ def paged_attend(params, cfg: ModelConfig, q: torch.Tensor,
     page_rows (B,n) and project out. ``attn`` is the paged-attention
     kernel's wrapper; its plain version is passed only to check the
     kernel's run against it on the card."""
-    o = attn(q.contiguous(), cache.k, cache.v, cache.pos,
-             page_rows.contiguous(), qpos.contiguous(),
-             window=int(window) if window else 0,
-             softcap=float(cfg.attn_softcap) if cfg.attn_softcap else 0.0)
+    kw = dict(window=int(window) if window else 0,
+              softcap=float(cfg.attn_softcap) if cfg.attn_softcap else 0.0)
+    if shd.is_distributed(q):
+        o = dk.paged_attention(attn, q, cache, page_rows, qpos, **kw)
+    else:
+        o = attn(q.contiguous(), cache.k, cache.v, cache.pos,
+                 page_rows.contiguous(), qpos.contiguous(), **kw)
     return out_project(params, o)
 
 
@@ -348,7 +560,9 @@ def paged_fill_from_prefill(pool: PagedKVCache, ring: KVCache,
                             page_row: torch.Tensor) -> PagedKVCache:
     """Write a single-request contiguous prefill cache ``ring`` (batch 1,
     ring layout with absolute positions) into the slot's pages of ``pool``,
-    in place."""
+    in place (on a mesh the ring, placed as the prefill's K, is gathered
+    whole first)."""
+    ring = KVCache(*(shd.full(t) for t in ring))
     pos = ring.pos[0]                                           # (L,) absolute, -1 empty
     rows = page_row.expand(pos.shape[0], page_row.shape[-1])
     phys, off, _ = _page_coords(rows, pos, pool.k.shape[1], pool.num_pages)

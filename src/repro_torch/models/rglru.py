@@ -77,6 +77,11 @@ class RGLRUState(NamedTuple):
     conv: torch.Tensor       # (B, K-1, W) conv tail, float32
 
 
+def rglru_state_axes() -> RGLRUState:
+    """Logical axes of each leaf of the state."""
+    return RGLRUState(h=("batch", "inner"), conv=("batch", None, "inner"))
+
+
 def init_rglru_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
                      device="cpu") -> RGLRUState:
     g = cfg.rglru

@@ -81,6 +81,12 @@ class SSMState(NamedTuple):
     conv: torch.Tensor       # (B, conv_width-1, conv_dim) conv tail, float32
 
 
+def ssm_state_axes() -> SSMState:
+    """Logical axes of each leaf of the state."""
+    return SSMState(h=("batch", "heads", None, "state"),
+                    conv=("batch", None, "inner"))
+
+
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
                    device="cpu") -> SSMState:
     s = cfg.ssm
@@ -241,7 +247,9 @@ def ssm_steps(params, cfg: ModelConfig, x: torch.Tensor, state: SSMState, *,
     z, xBC_raw, dt = _project(params, cfg, x)                   # (B,T,...)
     xBC, tail = _causal_conv(params, cfg, xBC_raw, tail=state.conv, conv=conv)
     xh, Bm, Cm = _split_xbc(cfg, xBC)
-    xh = xh.reshape(Bsz, T, H, P)
+    # as the prefill pins them: on a mesh whose model axis does not divide
+    # the heads, the view of a split channel axis as heads is gathered
+    xh = constrain(xh.reshape(Bsz, T, H, P), ("batch", "seq", "heads", None))
     rep = H // G
     Bh = torch.repeat_interleave(Bm.reshape(Bsz, T, G, N), rep, dim=2)
     Ch = torch.repeat_interleave(Cm.reshape(Bsz, T, G, N), rep, dim=2)
@@ -252,13 +260,19 @@ def ssm_steps(params, cfg: ModelConfig, x: torch.Tensor, state: SSMState, *,
     h = state.h
     hs, ys = [], []
     for t in range(T):
-        h = h * dA[:, t, :, None, None] + \
-            xdt[:, t, :, :, None] * Bh[:, t, :, None, :]
-        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+        h = constrain(h * dA[:, t, :, None, None]
+                      + xdt[:, t, :, :, None] * Bh[:, t, :, None, :],
+                      ("batch", "heads", None, "state"))
+        # on a mesh a sum over N, which splits no dim: the einsum's bmm
+        # would merge the split batch and head dims
+        ys.append((h * Ch[:, t, :, None, :]).sum(-1)
+                  if shd.is_distributed(h)
+                  else torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
         if snapshots:
             hs.append(h)
     y = torch.stack(ys, dim=1)                                  # (B,T,H,P) float32
-    y = y + xh.float() * params["D"].float()[:, None]
+    y = constrain(y + xh.float() * params["D"].float()[:, None],
+                  ("batch", "seq", "heads", None))
     y = y.reshape(Bsz, T, H * P).to(x.dtype)
     y = apply_norm(params["out_norm"], "rmsnorm", y * F.silu(z))
     out = y @ params["w_out"].to(x.dtype)

@@ -4,13 +4,21 @@ speculative verify, chunked prefill).
 
 The port of ``repro/models/transformer.py``: its dense,
 mixture-of-experts, recurrent (RG-LRU), SSM (Mamba-2), front-end and
-encoder parts, all but the contiguous (unpaged) cache.
+encoder parts, with the paged cache and the contiguous one (the
+reference's parity baseline: ``init_cache``, ``decode_step``).
 The reference scans a stacked ``params["blocks"]`` with a leading
 repetition axis; the port holds one parameter dict per layer in
 ``params["layers"]`` (prefix, then the pattern repetitions, then the
 suffix, in the reference's order) and loops over them, and keeps one
 cache entry per layer in a list. ``convert.params_from_jax`` unstacks the
 reference's tree into this layout.
+
+The cache is a list of one entry a layer: ``init_cache`` gives each
+attention layer a ring of ``max_len`` slots (a local layer's window),
+``init_paged_cache`` a page pool; ``cache_axes``/``paged_cache_axes`` give
+the logical axes of each entry's leaves (the reference's trees put a
+leading repetition axis on the scanned blocks' leaves, which the port's
+list does not have; ``serve/state.py::cache_leaves`` maps the two).
 
 Attention layers keep a page pool each; recurrent and SSM layers keep
 O(1) slot-major state (float32, one row per request slot), which the
@@ -457,6 +465,25 @@ def _apply_layer_step(lp, cfg: ModelConfig, x: torch.Tensor,
     return _apply_ffn(lp, cfg, x + out, ffn)[0], new_entry
 
 
+def apply_layer_decode(lp, cfg: ModelConfig, x: torch.Tensor,
+                       kind: LayerKind, ffn: str, cache_entry, position, *,
+                       ops: KernelOps = KERNELS):
+    """One-token layer step against a contiguous ring (attention) or the
+    slot-major state (recurrent, SSM: every row advances, in place).
+    Returns (x, the cache entry, updated in place)."""
+    def mixer(lp_, kind_, h):
+        if kind_ in (ATTN_GLOBAL, ATTN_LOCAL):
+            return attn_mod.decode_attention(
+                lp_["attn"], cfg, h, cache_entry, position,
+                window=_window(cfg, kind_))
+        steps, p = _steps(kind_, lp_)
+        out, ne = steps(p, cfg, h, cache_entry, conv=ops.conv1d)
+        for n, o in zip(ne, cache_entry):
+            o.copy_(n.to(o.dtype))
+        return out, cache_entry
+    return _apply_layer_step(lp, cfg, x, kind, ffn, mixer)
+
+
 def run_prefill_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                       max_len: int, ops: KernelOps = KERNELS):
     """x (B,S,d) -> (final-normed x, per-layer caches of ``max_len``),
@@ -619,6 +646,23 @@ def _mask_state_update(new_entry, old_entry, active: torch.Tensor):
     return old_entry
 
 
+def decode_step(params: Params, cfg: ModelConfig,
+                inputs: Dict[str, torch.Tensor], caches, position, *,
+                dtype=torch.bfloat16, ops: KernelOps = KERNELS):
+    """One decode step against the contiguous cache: tokens (B,1) ->
+    (logits (B,V), caches updated in place). ``position`` is a scalar
+    (every row at the same index) or a (B,) vector of per-row indices
+    (the engine's slots, ragged prompts in one batch)."""
+    x = _gated(params, cfg, embed_inputs(params, cfg, inputs, dtype))
+
+    def layer_fn(lp, kind, ffn, ce, xx):
+        return apply_layer_decode(lp, cfg, xx, kind, ffn, ce, position,
+                                  ops=ops)
+
+    x, new_caches = _decode_walk(params, cfg, x, caches, layer_fn)
+    return _finish_logits(params, cfg, x)[:, 0], new_caches
+
+
 def decode_step_paged(params: Params, cfg: ModelConfig,
                       inputs: Dict[str, torch.Tensor], caches,
                       position: torch.Tensor, page_table: torch.Tensor,
@@ -685,12 +729,18 @@ def _chunk_recurrent(steps, p, cfg: ModelConfig, x: torch.Tensor, entry,
     state back into the row in place. The first chunk of a prompt
     (``pos_start == 0``) starts from zeros: the row may hold stale state
     from an evicted request."""
-    row = type(entry)(*(t[slot:slot + 1] for t in entry))
+    if shd.is_distributed(entry[0]):
+        # on a mesh the slot's row, whole, placed as the state but for its
+        # batch axis; written back on local blocks
+        row = type(entry)(*(shd.rows_like(shd.take_rows(t, [slot]), t)
+                            for t in entry))
+    else:
+        row = type(entry)(*(t[slot:slot + 1] for t in entry))
     if int(pos_start) == 0:
         row = type(entry)(*(torch.zeros_like(t) for t in row))
     out, new = steps(p, cfg, x, row, conv=conv)
     for full, one in zip(entry, new):
-        full[slot:slot + 1] = one.to(full.dtype)
+        shd.put_rows(full, [slot], shd.full(one))
     return out, entry
 
 
@@ -730,13 +780,15 @@ def scatter_prefill_paged(cfg: ModelConfig, paged_caches, prefill_caches,
             attn_mod.paged_fill_from_prefill(pooled, fresh, page_row)
         else:
             for full, one in zip(pooled, fresh):
-                full[int(slot)] = one[0].to(full.dtype)
+                shd.put_rows(full, [slot], shd.full(one)[:1])
     return paged_caches
 
 
 def init_paged_cache(cfg: ModelConfig, slots: int, num_pages: int,
-                     page_size: int, dtype=torch.bfloat16, device="cpu"):
-    """Per layer: a page pool of ``num_pages`` pages (plus the sink) for an
+                     page_size: int, dtype=torch.bfloat16, device="cpu",
+                     shards: int = 1):
+    """Per layer: a page pool of ``num_pages`` pages (plus a sink for each
+    of the ``shards`` blocks a mesh cuts the page axis into) for an
     attention layer, so slot count is decoupled from cache length and
     memory follows live tokens; O(1) slot-major float32 state for a
     recurrent or SSM layer. (mamba2 has no attention layer, so no pool.)"""
@@ -747,5 +799,43 @@ def init_paged_cache(cfg: ModelConfig, slots: int, num_pages: int,
             return ssm_mod.init_ssm_state(cfg, slots, device=device)
         return attn_mod.init_paged_kv_cache(
             num_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim(),
-            dtype, device)
+            dtype, device, shards=shards)
     return [one(kind) for kind, _ in layer_plan(cfg)]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cpu"):
+    """Per layer: a contiguous ring of ``max_len`` (a local layer's window)
+    for an attention layer, O(1) float32 state for a recurrent or SSM
+    layer, ``batch`` rows each."""
+    def one(kind):
+        if kind == RECURRENT:
+            return rglru_mod.init_rglru_state(cfg, batch, device=device)
+        if kind == SSM:
+            return ssm_mod.init_ssm_state(cfg, batch, device=device)
+        return attn_mod.init_kv_cache(
+            batch, attn_mod.cache_length(cfg, kind, max_len),
+            cfg.num_kv_heads, cfg.resolved_head_dim(), dtype, device)
+    return [one(kind) for kind, _ in layer_plan(cfg)]
+
+
+def _state_axes(kind: LayerKind):
+    if kind == RECURRENT:
+        return rglru_mod.rglru_state_axes()
+    if kind == SSM:
+        return ssm_mod.ssm_state_axes()
+    raise ValueError(kind)
+
+
+def cache_axes(cfg: ModelConfig):
+    """The logical axes of ``init_cache``'s entries, layer by layer."""
+    return [attn_mod.kv_cache_axes() if kind in (ATTN_GLOBAL, ATTN_LOCAL)
+            else _state_axes(kind) for kind, _ in layer_plan(cfg)]
+
+
+def paged_cache_axes(cfg: ModelConfig):
+    """The logical axes of ``init_paged_cache``'s entries, layer by
+    layer."""
+    return [attn_mod.paged_kv_cache_axes()
+            if kind in (ATTN_GLOBAL, ATTN_LOCAL) else _state_axes(kind)
+            for kind, _ in layer_plan(cfg)]

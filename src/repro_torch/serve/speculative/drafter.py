@@ -13,7 +13,8 @@ Two implementations behind one :class:`Drafter` protocol:
     the tokens that followed the most recent earlier occurrence of the
     context's trailing n-gram;
   * :class:`ModelDrafter` — a second model config served greedily by its
-    own paged :class:`InferenceEngine` on the same device, slot-aligned
+    own paged :class:`InferenceEngine` on the same device (or the
+    target's mesh, ``mesh=``), slot-aligned
     with the target scheduler's slots; its params from the port's init or
     a checkpoint (:meth:`ModelDrafter.from_checkpoint`).
 
@@ -122,16 +123,19 @@ class ModelDrafter:
     restores what its speculative rollout changed (see the module
     docstring)."""
 
-    def __init__(self, cfg: ModelConfig, params=None, *, slots: int = 4,
-                 max_len: int = 64, page_size: int = 16,
+    def __init__(self, cfg: ModelConfig, params=None, *, mesh=None,
+                 slots: int = 4, max_len: int = 64, page_size: int = 16,
                  catch_up_chunk: int = 16, dtype=torch.bfloat16,
                  seed: int = 0, device: str | torch.device = "cuda"):
+        """``mesh``: the target's mesh, on which the draft engine places
+        its own state by the same rules (params from every rank alike)."""
         self.cfg = cfg
         self.chunk = int(catch_up_chunk)
         if self.chunk < 1:
             raise ValueError("catch_up_chunk must be >= 1")
-        self.engine = InferenceEngine(cfg, slots=slots, max_len=max_len,
-                                      dtype=dtype, page_size=page_size,
+        self.engine = InferenceEngine(cfg, mesh=mesh, slots=slots,
+                                      max_len=max_len, dtype=dtype,
+                                      paged=True, page_size=page_size,
                                       device=device)
         if params is None:
             params = tfm.init(cfg, torch.Generator(
@@ -223,7 +227,7 @@ class ModelDrafter:
                 for slot in drafts:
                     if i < wants[slot][1]:
                         drafts[slot].append(int(toks[slot]))
-            with torch.inference_mode():
+            with torch.no_grad():
                 for t, keep in zip(self._rollout_rows(), saved):
                     t.copy_(keep)
         return {s: np.asarray(d[:wants[s][1]], np.int32)

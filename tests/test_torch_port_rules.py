@@ -40,7 +40,7 @@ assert not bad, bad
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split()[0])
-    assert n >= 87      # every module of the port: the distribution layer included
+    assert n >= 89      # every module of the port: the launch tooling included
 
 
 def test_host_mesh_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -158,6 +158,45 @@ def test_lm_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceEngine(cfg)
     assert InferenceEngine(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.steps", "repro_torch.launch.dryrun",
+    "repro_torch.serve.engine", "repro_torch.distributed.kernels"])
+def test_serving_and_launch_modules_import_no_jax(module):
+    """The modules of serving on a mesh and of the launch tooling, each
+    alone in a fresh process: no jax, nothing of ``repro``, and no process
+    group started by the import."""
+    code = f"""
+import sys, importlib
+import torch.distributed as dist
+importlib.import_module("{module}")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+assert not bad, bad
+assert not dist.is_initialized()
+"""
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_contiguous_engine_and_drafter_default_to_cuda(monkeypatch):
+    """``InferenceEngine(paged=False)``, ``ModelDrafter`` and the launch
+    tooling's training step run on the card unless asked for the CPU."""
+    from repro_torch.configs import TrainConfig, get_config, smoke_variant
+    from repro_torch.launch.steps import make_train_step_fn
+    from repro_torch.serve import InferenceEngine, ModelDrafter
+    cfg = smoke_variant(get_config("qwen2-1.5b"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: InferenceEngine(cfg, paged=False),
+                 lambda: ModelDrafter(cfg),
+                 lambda: make_train_step_fn(cfg, TrainConfig())):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert InferenceEngine(cfg, paged=False,
+                           device="cpu").device.type == "cpu"
 
 
 def test_cpu_forward_launches_no_kernel():

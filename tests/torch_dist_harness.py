@@ -246,3 +246,123 @@ def local_attention_cases(rank, world, *, cases):
                             for a, b in zip(got, want)],
                     "out_placements": str(o.placements)})
     return out
+
+
+class ScriptedDrafter:
+    """Proposes a known stream's next ``j`` tokens, then a wrong one: each
+    verify step accepts min(j, k) drafts (the reference's test drafter)."""
+
+    def __init__(self, truth, vocab, j):
+        self.truth = truth              # {prompt bytes: the stream}
+        self.vocab, self.j = vocab, j
+
+    def propose(self, wants):
+        import numpy as np
+        out = {}
+        for slot, (ctx, k) in wants.items():
+            ctx = np.asarray(ctx, np.int32)
+            for pb, cont in self.truth.items():
+                p = np.frombuffer(pb, np.int32)
+                if len(ctx) >= len(p) and (ctx[:len(p)] == p).all():
+                    n_gen = len(ctx) - len(p)
+                    good = list(cont[n_gen:n_gen + min(self.j, k)])
+                    if len(good) < k:
+                        nxt = cont[n_gen + len(good)] \
+                            if n_gen + len(good) < len(cont) else 0
+                        good.append((nxt + 1) % self.vocab)
+                    out[slot] = np.asarray(good[:k], np.int32)
+                    break
+        return out
+
+    def release(self, slot):
+        pass
+
+
+def _placement_strs(tree, key=""):
+    """{'/'-joined path: str(placements)} of a state's DTensor leaves."""
+    from repro_torch.distributed.sharding import is_distributed
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = (zip(tree._fields, tree) if hasattr(tree, "_fields")
+                 else enumerate(tree))
+    else:
+        return {key: str(tuple(tree.placements))} \
+            if is_distributed(tree) else {}
+    out = {}
+    for k, v in items:
+        out.update(_placement_strs(v, f"{key}/{k}" if key else str(k)))
+    return out
+
+
+def record_decode_logits(eng) -> list:
+    """Make ``eng`` append each decode step's logits of the active slots
+    (float32 numpy, (active slots, V)) to the returned list, read where
+    the step hands them to the sampler."""
+    seen = []
+    sample_all = eng._sample_all
+
+    def spy(state, logits, active, *args):
+        seen.append(logits[active].float().cpu().numpy())
+        return sample_all(state, logits, active, *args)
+    eng._sample_all = spy
+    return seen
+
+
+def serve_runs(rank, world, *, mesh_shape, runs):
+    """Serve each run's queue on one mesh: ``runs`` a list of dicts with
+    ``arch`` (smoke config), ``params`` (the port's per-layer tree as
+    numpy), ``engine`` and ``sched`` options, ``requests`` ((prompt,
+    max_new, sampling dict or None) each) and ``drafter``: None,
+    ``("script", j, run index whose streams are the truth)`` or
+    ``("model",)`` (the target's own config and params on the mesh).
+    Returns each run's streams, scheduler counts and decode steps' logits
+    (``record_decode_logits``), and the placements of every DTensor leaf
+    of the first run's state."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.serve import (
+        InferenceEngine, ModelDrafter, Request, SamplingParams, Scheduler,
+    )
+    mesh = _mesh(mesh_shape)
+    out = []
+
+    def tree_of(a):
+        if isinstance(a, dict):
+            return {k: tree_of(v) for k, v in a.items()}
+        if isinstance(a, list):
+            return [tree_of(v) for v in a]
+        return torch.from_numpy(np.array(a))
+    for run in runs:
+        cfg = smoke_variant(get_config(run["arch"]))
+        dtype = getattr(torch, run.get("dtype", "float32"))
+        eng = InferenceEngine(cfg, mesh=mesh, device="cpu", dtype=dtype,
+                              **run["engine"])
+        state = eng.init_state(tree_of(run["params"]))
+        logits = record_decode_logits(eng)
+        drafter = None
+        kind = run.get("drafter")
+        if kind and kind[0] == "script":
+            truth = out[kind[2]]["streams"]
+            drafter = ScriptedDrafter(
+                {np.asarray(p, np.int32).tobytes(): truth[i]
+                 for i, (p, _, _) in enumerate(run["requests"])},
+                cfg.vocab_size, kind[1])
+        elif kind and kind[0] == "model":
+            drafter = ModelDrafter(cfg, tree_of(run["params"]), mesh=mesh,
+                                   slots=eng.slots, max_len=eng.max_len,
+                                   page_size=4, catch_up_chunk=4,
+                                   dtype=dtype, device="cpu")
+        sched = Scheduler(eng, state, drafter=drafter, **run["sched"])
+        reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), max_new=n,
+                        sampling=SamplingParams(**s) if s else SamplingParams())
+                for i, (p, n, s) in enumerate(run["requests"])]
+        streams = sched.run(reqs)
+        out.append({"streams": {k: [int(t) for t in v]
+                                for k, v in streams.items()},
+                    "stats": dict(sched.stats),
+                    "decode_logits": logits,
+                    "placements": (_placement_strs(state._asdict())
+                                   if not out else None)})
+    return out
