@@ -260,8 +260,8 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    and the train CLI at 2 layers in float32 with the kernels' ops and
    the plain ones: losses within 1e-5;
 14. distribution on a 1x1 mesh (``distribution_main_path``): a world-1
-   NCCL group started by ``launch.mesh.make_host_mesh()`` and destroyed
-   at the phase's end; the stacked Dom-ST engine (23 watersheds, float32)
+   NCCL group started by ``launch.mesh.make_host_mesh()``, destroyed at
+   phase 16's end (the mesh's trained mamba2 is served there); the stacked Dom-ST engine (23 watersheds, float32)
    for one epoch of 9 steps and the forecast of the 74 held-out days,
    then mamba2-130m at full width and depth (8 x 1,024, bf16, block
    remat) with the FSDP rule variant for 3 steps, each on the mesh and on
@@ -276,12 +276,28 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    library calls at the training shapes (``library_at_training_shapes``:
    ``torch.lstm_cell`` at 23 x 32 rows, ``F.conv1d(groups=C)`` at both
    LM training shapes, SDPA with a band mask at recurrentgemma-2b's);
-15. one JSON line listing every ported kernel with its error, times, bound
+15. serving on the 1x1 mesh (``serving_mesh_main_path``): qwen2-1.5b at
+   full width and depth in bf16, one wave in three modes on and off the
+   mesh: launches as ``scripts/serve_mesh_rehearsal.py`` predicts, equal
+   on and off the mesh, streams equal; float32 at 6 layers, every launch
+   on the mesh against plain, the contiguous engine against the paged;
+16. more archs on the 1x1 mesh (``serving_mesh_archs_main_path``):
+   mamba2-130m in three modes and deepseek-moe-16b whole at full width
+   and depth in bf16 (the conv1d, SSD-chunk and paged-attention kernels
+   on local blocks, the MoE layers through ``moe_block_sharded``), each
+   held to phases 7 and 11's one-device runs of the same seed and queue:
+   launches as ``serve_mesh_rehearsal.py --phase 16`` predicts, streams
+   equal, decode steps timed on and off the mesh; float32 at 6 and 3
+   layers, every launch on the mesh against plain and the streams equal
+   to one device's; then phase 14's trained mamba2-130m adopted on its
+   mesh by ``InferenceEngine.from_train_state``, its streams and
+   launches equal to the one-device engine's on the gathered state;
+17. one JSON line listing every ported kernel with its error, times, bound
    and launches (by model and mode; Pix-Con and the LSTM step by path,
    forecast and training, on and off the mesh, with their times at the
    training shapes; conv1d, the SSD chunk and local attention with their
    training shapes), then the line with the card's name and power limit;
-16. the last line, ``{"ok": true, "device": {...}}``.
+18. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card. ``torch.compile`` (the flex_attention yardstick)
 keeps its caches under ``build/`` and compiles in this process. Without CUDA, or run from a directory that does not
@@ -332,10 +348,10 @@ LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_GEN, LM_SEED = 8, 4, 512, 64, 0
 LM_LENS = [LM_PROMPT - (i % 4) * 2 for i in range(LM_REQUESTS)]
 LM_MAX_LEN = LM_PROMPT + LM_GEN
 LM_CHUNK, LM_SPEC_K = 128, 3
-# its float32 per-launch and stream checks at half its 28 layers (the
-# bf16 runs, the logits checks and the width are whole): the cut that
-# pays for phase 15
-LM_F32_DEPTH = 14
+# its float32 per-launch and stream checks at a quarter of its 28 layers
+# (the bf16 runs, the logits checks and the width are whole): the cut
+# that pays for phases 15 and 16
+LM_F32_DEPTH = 7
 # The served models' queues on 4 slots, by mode, and the queue of the
 # profiled repeat of whole prefill. recurrentgemma-2b and gemma2-2b: whole
 # prefill with prompts past their window (2,048 and 4,096 tokens:
@@ -360,10 +376,11 @@ SERVED_RUNS = {
         "gen": 32, "profile": ([4608, 4300, 1024, 512], 32)},
 }
 # Their float32 checks (every launch against plain, the greedy streams)
-# at about half their depth, each layer kind kept: with phase 5's, the
-# cut that pays for phase 15
-SERVED_F32_DEPTH = {"recurrentgemma-2b": 13, "mamba2-130m": 12,
-                    "gemma2-2b": 13}
+# at about a quarter of their depth, each layer kind kept (two of
+# recurrentgemma's (R, R, L) repetitions, three of gemma2's (L, G)):
+# with phase 5's, the cut that pays for phases 15 and 16
+SERVED_F32_DEPTH = {"recurrentgemma-2b": 6, "mamba2-130m": 6,
+                    "gemma2-2b": 6}
 # Phase 10, the serving policies: shared-prefix families (a 1,024-token
 # system prompt and a 64-192-token tail each), 4 families x 4 requests
 # with 32 new tokens for qwen2-1.5b in bf16, else cut to 2 x 2 with 16;
@@ -1272,18 +1289,19 @@ def gathered_mask(a, window=0):
 
 
 def paged_work(a, window=0) -> tuple[float, float]:
-    """Bytes the function must move (the assigned pages' K/V rows of
-    every KV head and their positions, q, out, the page rows and query
-    positions, each once) and its operations (q.k and p.v over the keys
-    each query row can attend to: 4 operations a key and dim)."""
-    import torch
+    """Bytes the function must move (the K/V rows of every KV head and the
+    positions of each page holding a key some query of its slot can
+    attend to, q, out, the page rows and query positions, each once: a
+    window leaves a slot's older pages unread) and its operations (q.k
+    and p.v over the keys each query row can attend to: 4 operations a
+    key and dim)."""
     B, T, Hq, D = a["q"].shape
     ps, Hkv = a["k_pool"].shape[1], a["k_pool"].shape[2]
     esize = a["q"].element_size()
-    pages = int((a["page_rows"] >= 0).sum())
+    _, _, mask = gathered_mask(a, window)                # (B, 1, T, n * ps)
+    pages = int(mask.any(2).reshape(B, -1, ps).any(-1).sum())
     nbytes = (pages * ps * (2 * Hkv * D * esize + 4) + 2 * a["q"].numel() * esize
               + 4 * (a["page_rows"].numel() + a["qpos"].numel()))
-    _, _, mask = gathered_mask(a, window)
     keys = int(mask.sum()) * Hq            # attendable (row, key) pairs
     return nbytes, 4.0 * keys * D
 
@@ -2290,7 +2308,10 @@ def serve_once(cfg, dev, params, dtype, mode: dict, reqs: list, ops=None,
     served model drafting for itself on its own engine, catching up in
     chunks of ``prefill_chunk`` tokens), ``num_pages``,
     ``prefix_cache``, ``preempt``, ``host_cache_bytes``; ``time_hooks``
-    times each swap and host-tier call. Returns the streams, their
+    times each swap and host-tier call; ``adopt`` (a training engine and
+    its state): the engine and its state by
+    ``InferenceEngine.from_train_state`` on the training engine's device
+    or mesh, ``params`` unused. Returns the streams, their
     digest, the stats, tok/s, decode tok/s, TTFT p50/p99 and the
     launches; with ``profile_reqs``, also the device time by kernel of a
     profiled run of that queue on the same engine."""
@@ -2303,12 +2324,16 @@ def serve_once(cfg, dev, params, dtype, mode: dict, reqs: list, ops=None,
     max_len = max(request_len(r) for r in reqs)
     spec_k, slots = mode.get("spec_k", 0), mode.get("slots", LM_SLOTS)
     mesh = mode.get("mesh")
-    eng = InferenceEngine(cfg, mesh=mesh, slots=slots, max_len=max_len,
-                          paged=mode.get("paged", True),
-                          page_size=16, dtype=dtype, device=dev,
-                          prefill_chunk=mode.get("prefill_chunk", 0),
-                          num_pages=mode.get("num_pages"),
-                          ops=ops or tfm.KERNELS)
+    kw = dict(slots=slots, max_len=max_len, paged=mode.get("paged", True),
+              page_size=16, dtype=dtype,
+              prefill_chunk=mode.get("prefill_chunk", 0),
+              num_pages=mode.get("num_pages"), ops=ops or tfm.KERNELS)
+    adopted = None
+    if mode.get("adopt"):
+        eng, adopted = InferenceEngine.from_train_state(*mode["adopt"], **kw)
+        mesh = eng.mesh
+    else:
+        eng = InferenceEngine(cfg, mesh=mesh, device=dev, **kw)
 
     def drafter():
         if not spec_k:
@@ -2321,7 +2346,9 @@ def serve_once(cfg, dev, params, dtype, mode: dict, reqs: list, ops=None,
         return NgramDrafter()
 
     def sched_of(tracer=None):
-        return Scheduler(eng, eng.init_state(params), tracer=tracer,
+        nonlocal adopted
+        state, adopted = adopted or eng.init_state(params), None
+        return Scheduler(eng, state, tracer=tracer,
                          spec_k=spec_k, drafter=drafter(),
                          prefix_cache=mode.get("prefix_cache", False),
                          preempt=mode.get("preempt", False),
@@ -2703,7 +2730,7 @@ def lm_main_path(dev) -> dict:
           f"{f32_logits['argmax_equal']}, card/CPU "
           f"{f32_logits['cpu_argmax_equal']}")
     # the per-launch and stream checks at LM_F32_DEPTH of the 28 layers
-    # (width, queue and modes whole), to pay for phase 15's time
+    # (width, queue and modes whole), to pay for phases 15 and 16
     cfg, p32 = half_depth(cfg, p32, LM_F32_DEPTH)
     f32 = {}
     d32 = damped(cfg, p32)
@@ -2864,6 +2891,8 @@ def served_main_path(arch: str, dev) -> dict:
               f"{r['launches']['local_attn']} times, not {local}")
         runs[name] = r
         print_run(arch, name, r)
+    if arch in MESH_ARCHS:        # phase 16 holds its mesh runs to these
+        ONE_DEVICE_RUNS[arch] = {n: runs[n] for n in MESH_ARCHS[arch]}
     if spec["lens"]["chunked"] == spec["lens"]["whole"]:
         print(f"  bf16 streams, chunked vs whole: "
               f"{same_tokens(runs['chunked']['gen'], runs['whole']['gen']):.3f}"
@@ -3597,6 +3626,7 @@ def moe_main_path(dev) -> dict:
     serve_once(cfg, dev, pbf, bf16, {}, requests_of(cfg.vocab_size,
                                                     MOE_LENS[:2], 4))
     r = served(cfg, pbf, "whole")
+    ONE_DEVICE_RUNS[cfg.name] = {"whole": r}     # phase 16's yardstick
     logits = {}
     for tag in ("main weights", "rescaled weights"):
         if tag == "rescaled weights":
@@ -4285,6 +4315,9 @@ def distribution_main_path(dev) -> dict:
             lm[name] = {"losses": losses, "step_s": step_s,
                         "launches": read_launches(),
                         "host": eng.host_state(state)}
+            if m is not None:       # phase 16 serves it from the mesh
+                HANDOFF.update(engine=eng, state=state,
+                               host=lm[name]["host"])
             del eng, state, batches
             torch.cuda.empty_cache()
         want = {n: 0 for n in lm["1x1 mesh"]["launches"]}
@@ -4315,8 +4348,10 @@ def distribution_main_path(dev) -> dict:
             "losses": {n: r["losses"] for n, r in lm.items()},
             "loss_rel_err": l_err, "state_rel_err": s_err}
         del lm
-    finally:
+    except BaseException:
         dist.destroy_process_group()
+        raise
+    # the world stays up: phase 16 serves the trained mamba2 on this mesh
     print("  " + json.dumps({k: {kk: vv for kk, vv in v.items()
                                  if kk != "profile"}
                              for k, v in out.items()}))
@@ -4438,9 +4473,204 @@ def serving_mesh_main_path(dev) -> dict:
                    for where, r in pair.items()}
             for name, pair in runs.items()}
         out["fp32"] = f32
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    print("  " + json.dumps({k: v for k, v in out.items() if k != "profile"}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: mamba2, MoE and an adopted training state served on a 1x1 mesh
+# ---------------------------------------------------------------------------
+# mamba2-130m at full width and depth on phase 7's wave (4 requests of
+# 512/510/508/506 tokens, 32 new), whole / in 128-token chunks / spec_k=3
+# (damped weights), and deepseek-moe-16b at full width and depth on phase
+# 11's wave, whole, through InferenceEngine(mesh=) on the host mesh; each
+# held to the one-device run of phases 7 and 11 (the same seed and queue:
+# ``ONE_DEVICE_RUNS``, not run again). Then phase 14's mamba2-130m,
+# trained with the FSDP rules on the 1x1 mesh (``HANDOFF``), adopted by
+# ``InferenceEngine.from_train_state`` on that mesh and served one wave
+# whole, against the same state served from ``host_state`` on one device.
+# Launches a run, from ``scripts/serve_mesh_rehearsal.py --phase 16`` (the
+# same queues at full depth on the CPU, on one device and on a 1x1 mesh
+# alike): mamba2, 24 layers x (4 prompts + 31 decode steps) conv1d and 24
+# x 4 ssd_chunk whole; 24 x (16 chunks + 43 decode steps) conv1d chunked;
+# 24 x (4 + 16 steps) conv1d and 24 x 4 ssd_chunk spec; deepseek-moe, 28
+# layers x 31 decode steps paged_attn. float32 at ``MESH_ARCHS_F32_DEPTH``
+# layers, every layer kind kept (deepseek-moe: its dense first layer and
+# two MoE layers): every launch on the mesh held against the plain version,
+# and the greedy streams on the mesh equal one device's.
+MESH_ARCHS = {"mamba2-130m": ("whole", "chunked", "spec"),
+              "deepseek-moe-16b": ("whole",)}
+MESH_ARCHS_LAUNCHES = {
+    "mamba2-130m": {"whole": {"conv1d": 24 * 35, "ssd_chunk": 24 * 4},
+                    "chunked": {"conv1d": 24 * 59},
+                    "spec": {"conv1d": 24 * 20, "ssd_chunk": 24 * 4}},
+    "deepseek-moe-16b": {"whole": {"paged_attn": 28 * 31}}}
+MESH_ARCHS_F32_DEPTH = {"mamba2-130m": 6, "deepseek-moe-16b": 3}
+ONE_DEVICE_RUNS: dict = {}    # arch -> mode -> run, from phases 7 and 11
+HANDOFF: dict = {}            # phase 14's mamba2 engine and state on the mesh
+
+
+def decode_step_ms(r) -> float:
+    """A served run's mean decode step, host clock, in ms."""
+    return 1e3 * r["stats"]["decode_s"] / max(r["stats"]["decode_steps"], 1)
+
+
+def mesh_against_one(arch, name, r, one, want_launches) -> dict:
+    """Check a bf16 run on the mesh against the one-device run of the same
+    queue: launches (and the rehearsal's), streams; print both runs."""
+    want = {k: 0 for k in r["launches"]}
+    want.update(want_launches)
+    check(r["launches"] == one["launches"] == want,
+          f"{arch} {name}: launches on the mesh {r['launches']}, one device "
+          f"{one['launches']}, predicted {want}")
+    share = same_tokens(r["gen"], one["gen"])
+    print(f"  {arch} {name} bf16: streams on the mesh equal one device's: "
+          f"{r['gen'] == one['gen']} ({share:.4f} of the tokens equal; first "
+          f"parting {first_parting(r['gen'], one['gen'])}); decode step "
+          f"{decode_step_ms(r):.2f} ms on the mesh, {decode_step_ms(one):.2f} "
+          f"ms on one device")
+    check(r["gen"] == one["gen"], f"{arch} {name} bf16: the mesh's streams "
+          "differ from one device's")
+    return {"streams_equal_share": share, "launches": r["launches"],
+            **{f"{k} ({where})": x[k] for where, x in (("1x1 mesh", r),
+                                                     ("one device", one))
+               for k in ("tok_per_s", "decode_tok_per_s", "ttft_p50_s",
+                         "ttft_p99_s", "wall_s")},
+            "decode_step_ms (1x1 mesh)": decode_step_ms(r),
+            "decode_step_ms (one device)": decode_step_ms(one)}
+
+
+def f32_on_mesh(cfg, dev, params, name, mode, reqs_of, mesh) -> dict:
+    """float32 on the mesh: every launch held against the plain version,
+    then the kernels' greedy streams on the mesh against one device's."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    ops = checked_ops()
+    serve_once(cfg, dev, params, torch.float32, dict(mode, mesh=mesh),
+               reqs_of(), ops=ops)
+    rows = {k: {"launches": c.calls, "max_rel_err": c.max_rel}
+            for k, c in zip(tfm.KernelOps._fields, ops) if c.calls}
+    for k, c in rows.items():
+        print(f"  {cfg.name} {name} fp32 ({cfg.num_layers} layers) on the "
+              f"mesh, {k}: {c['launches']} launches held against the plain "
+              f"version, max error {c['max_rel_err']:.3e} of the output's "
+              f"largest |value| (tolerance {REL_F32})")
+        check(c["max_rel_err"] <= REL_F32, f"{cfg.name} {name} fp32 {k} on "
+              f"the mesh: kernel differs from plain by {c['max_rel_err']}")
+    check(bool(rows), f"{cfg.name} {name} fp32: no launch checked")
+    a = serve_once(cfg, dev, params, torch.float32, dict(mode, mesh=mesh),
+                   reqs_of())
+    b = serve_once(cfg, dev, params, torch.float32, mode, reqs_of())
+    print(f"  {cfg.name} {name} fp32 ({cfg.num_layers} layers): greedy "
+          f"streams on the mesh equal one device's: {a['gen'] == b['gen']} "
+          f"(first parting {first_parting(a['gen'], b['gen'])}), launches "
+          f"{ {k: v for k, v in a['launches'].items() if v} } on the mesh, "
+          f"{ {k: v for k, v in b['launches'].items() if v} } on one device")
+    check(a["gen"] == b["gen"] and a["launches"] == b["launches"],
+          f"{cfg.name} {name} fp32: the mesh's streams or launches differ")
+    return {"checked": rows, "streams_equal": True}
+
+
+def serving_mesh_archs_main_path(dev) -> dict:
+    """Phase 16. mamba2-130m (three modes) and deepseek-moe-16b (whole)
+    at full width and depth in bf16 through ``InferenceEngine(mesh=
+    make_host_mesh())``, random weights from the port's init (seed 0):
+    the conv1d, SSD-chunk and paged-attention kernels on local blocks
+    (``distributed/kernels.py``), the MoE layers through
+    ``moe_block_sharded``; launch counts (set to 0 just before each run
+    and read just after) equal to the one-device runs' of phases 7 and 11
+    and to the rehearsal's, streams equal, decode steps timed beside one
+    device's. Then float32 at ``MESH_ARCHS_F32_DEPTH`` layers. Then phase
+    14's trained mamba2-130m adopted on its mesh by ``from_train_state``:
+    its streams and launches equal the one-device engine's on the
+    gathered ``host_state``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.convert import unflatten
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    bf16 = torch.bfloat16
+    modes = {"whole": {}, "chunked": {"prefill_chunk": LM_CHUNK},
+             "spec": {"spec_k": LM_SPEC_K}}
+    mesh = make_host_mesh()
+    check(dist.get_world_size() == 1 and tuple(mesh.shape) == (1, 1),
+          f"host mesh: world {dist.get_world_size()}, shape "
+          f"{tuple(mesh.shape)}")
+    out = {}
+    try:
+        for arch, names in MESH_ARCHS.items():
+            cfg = get_config(arch)
+            lens = SERVED_RUNS[arch]["lens"] if arch in SERVED_RUNS else \
+                {n: MOE_LENS for n in names}
+            gen = SERVED_RUNS[arch]["gen"] if arch in SERVED_RUNS else MOE_GEN
+
+            def queue(name, c=cfg, lens=lens, gen=gen):
+                return requests_of(c.vocab_size, lens[name], gen)
+            pbf = init_params(cfg, dev, bf16)
+            serve_once(cfg, dev, pbf, bf16, {"mesh": mesh},
+                       requests_of(cfg.vocab_size, STEP_LENS[:1], 2))  # warm-up
+            res = {"launches": {}, "profile": None, "runs": {}}
+            for name in names:
+                params = damped(cfg, pbf) if name == "spec" else pbf
+                r = serve_once(cfg, dev, params, bf16,
+                               dict(modes[name], mesh=mesh), queue(name))
+                check_tokens(cfg, name, r, queue(name))
+                check_spec(arch, name, r)
+                print_run(f"{arch} (1x1 mesh)", name, r)
+                res["runs"][name] = mesh_against_one(
+                    arch, name, r, ONE_DEVICE_RUNS[arch][name],
+                    MESH_ARCHS_LAUNCHES[arch][name])
+                res["launches"][name] = r["launches"]
+            del pbf, params
+            torch.cuda.empty_cache()
+            stamp(f"phase 16 {arch} bf16 runs done")
+
+            # float32 at reduced depth, every layer kind kept
+            cfg_f = cfg.replace(num_layers=MESH_ARCHS_F32_DEPTH[arch])
+            p32 = init_params(cfg_f, dev)
+            has_attn = any("attn" in lp for lp in p32["layers"])
+            main = well_conditioned(cfg_f, p32) if has_attn else p32
+            res["fp32"] = {}
+            for name in names:
+                params = damped(cfg_f, p32) if name == "spec" else main
+                res["fp32"][name] = f32_on_mesh(
+                    cfg_f, dev, params, name, modes[name],
+                    lambda c=cfg_f, n=name: requests_of(
+                        c.vocab_size, lens[n], gen), mesh)
+            del p32, main, params
+            torch.cuda.empty_cache()
+            out[f"{arch} on a 1x1 mesh"] = res
+            stamp(f"phase 16 {arch} done")
+
+        # -- phase 14's trained mamba2-130m, adopted on its mesh ----------
+        arch = MESH_LM["arch"]
+        cfg = get_config(arch)
+        eng, state, host = (HANDOFF.pop(k) for k in ("engine", "state",
+                                                       "host"))
+        reqs = lambda: requests_of(cfg.vocab_size, STEP_LENS, 32)
+        adopted = serve_once(cfg, dev, None, bf16,
+                             {"adopt": (eng, state)}, reqs())
+        check_tokens(cfg, "adopted", adopted, reqs())
+        del eng, state
+        like = tfm.model_params(cfg, lambda *a: None)
+        tree = unflatten({k: v[0] for k, v in host.params.items()}, like)
+        one = serve_once(cfg, dev, tree, bf16, {}, reqs())
+        print_run(f"{arch} (adopted on the 1x1 mesh)", "whole", adopted)
+        row = mesh_against_one(f"{arch} trained (fsdp rules)", "whole",
+                               adopted, one, MESH_ARCHS_LAUNCHES[arch]["whole"])
+        del host, tree
+        torch.cuda.empty_cache()
+        out[f"{arch} adopted on a 1x1 mesh"] = {
+            "launches": {"whole": adopted["launches"]}, "profile": None,
+            "runs": {"whole": row}}
     finally:
         dist.destroy_process_group()
-    print("  " + json.dumps({k: v for k, v in out.items() if k != "profile"}))
+    print("  " + json.dumps({k: {kk: vv for kk, vv in v.items()
+                                 if kk != "profile"} for k, v in out.items()}))
     return out
 
 
@@ -4584,6 +4814,9 @@ def main() -> int:
     by_model["qwen2-1.5b on a 1x1 mesh"] = {
         k: v for k, v in serving_mesh_main_path(dev).items()
         if k in ("launches", "profile")}
+    print(f"[16] serving on a 1x1 mesh: mamba2-130m in three modes, deepseek-moe-16b whole, and phase 14's trained mamba2-130m adopted by from_train_state (at {time.perf_counter() - T_START:.0f} s)")
+    by_model.update({k: {kk: v[kk] for kk in ("launches", "profile")}
+                     for k, v in serving_mesh_archs_main_path(dev).items()})
     for res in by_model.values():
         for counts in res["launches"].values():
             for name, c in counts.items():
@@ -4606,7 +4839,7 @@ def main() -> int:
             arch: device_ms_per_launch(res["profile"]).get(k["name"])
             for arch, res in by_model.items()
             if arch in k["launches_by_mode"] and res["profile"]}
-    print(f"[16] all phases passed in {time.perf_counter() - T_START:.1f} s")
+    print(f"[17] all phases passed in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

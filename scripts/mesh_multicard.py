@@ -5,7 +5,7 @@ against the one-device run from the same state on the same card.
     python3 scripts/mesh_multicard.py [CARDS [CASE ...]]
 
 CARDS defaults to 4; CASE names the cases to run (``domst``, ``lm``,
-``moe``, ``serve``), all of them by default.
+``moe``, ``serve``, ``serve_moe``), all of them by default.
 
 One process a card (a world of CARDS ranks on a ``TCPStore`` at
 127.0.0.1), the kernels built once beforehand. Cases:
@@ -36,14 +36,29 @@ One process a card (a world of CARDS ranks on a ``TCPStore`` at
   step's logits within 2^-5 of one device's on the rescaled weights (the
   init law's printed), the collectives of a decode step
   (counts and bytes each rank sends, ``launch/dryrun.py::RankCounter``)
-  and the decode step's time on and off the mesh.
+  and the decode step's time on and off the mesh;
+* ``serve_moe``: deepseek-moe-16b at full width served expert parallel
+  on (1, CARDS) (its 64 experts split over "model", ``moe_block_sharded``:
+  one all-reduce of the experts' outputs a MoE layer): float32 at 4
+  layers (the dense first layer and 3 MoE layers; rescaled weights), the
+  wave's greedy streams and launches equal to one device's; one decode
+  step's logits on the rescaled weights, on one card and on the mesh
+  following the card's routing (``chip_smoke.Routes`` replayed), the
+  step fed the card's first tokens: float32 at full depth within
+  F32_FULL_REL of their scale, bf16 at 4, 8, 16 and 28 layers within
+  2^-5, beside one card's plain-vs-kernel gap at 28 (the mesh's own
+  routing's logits, its routing flips and whether its own first tokens
+  were the card's printed too); bf16 at
+  full depth on the init law's weights, the wave served whole on and off
+  the mesh (the share of equal tokens printed), then the collectives of a
+  decode step (with the port's frames that called each) and its time on
+  and off the mesh.
 
 Rank 0 prints one JSON line last; a failed check exits non-zero.
 """
 from __future__ import annotations
 
 import json
-import os
 import socket
 import sys
 import time
@@ -57,6 +72,8 @@ DOMST_R, DOMST_DAYS, DOMST_STEPS, BATCH = 24, 400, 9, 32
 LM = {"arch": "mamba2-130m", "batch": 8, "seq": 1024, "steps": 3}
 MOE = {"arch": "qwen3-moe-30b-a3b", "batch": 4, "seq": 64, "steps": 3}
 SERVE = {"arch": "qwen2-1.5b", "f32_depth": 6, "decode_steps": 8}
+SERVE_MOE = {"arch": "deepseek-moe-16b", "f32_depth": 4, "decode_steps": 8,
+             "bf16_depths": (4, 8, 16, 28)}
 F32_FULL_REL = 1e-4     # float32 decode logits at full depth, of their scale
 
 
@@ -185,17 +202,20 @@ def lm_case(spec, mesh_shape, dev, dtype, fsdp, rel):
     return res, ok
 
 
-def _decode_logits(eng, state):
+def _decode_logits(eng, state, tokens=None):
     """One paged decode step's float32 logits over the real vocab, whole,
-    from ``state`` (which the step advances)."""
+    from ``state`` (which the step advances), fed each slot's last token
+    or ``tokens``."""
     import torch
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import transformer as tfm
+    if tokens is None:
+        tokens = shd.full(state.last_tok)
     with torch.no_grad(), eng._context():
         act = torch.ones(eng.slots, dtype=torch.bool, device=eng.device)
         lg, _ = tfm.decode_step_paged(
             state.params, eng.cfg,
-            {"tokens": eng._batch_input(shd.full(state.last_tok)[:, None])},
+            {"tokens": eng._batch_input(tokens[:, None])},
             state.cache, shd.full(state.positions),
             shd.full(state.page_table), act, dtype=eng.dtype, ops=eng.ops)
         return shd.full(lg)[:, :eng.cfg.vocab_size].float().cpu()
@@ -234,10 +254,8 @@ def serve_case(mesh_shape, dev):
         REL_LOGITS_BF16, STEP_LENS, first_parting, half_depth, requests_of,
         serve_once, well_conditioned)
     from repro_torch.configs import get_config
-    from repro_torch.launch.dryrun import RankCounter
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as tfm
-    from torch.distributed.tensor.debug import CommDebugMode
     mesh = make_mesh(mesh_shape, ("data", "model"))
     cfg = get_config(SERVE["arch"])
     p32 = tfm.init(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -280,22 +298,7 @@ def serve_case(mesh_shape, dev):
                                      extra_len=SERVE["decode_steps"])
             rec = {"logits": _decode_logits(eng, state)}
             if kind == "init":
-                times = []
-                for _ in range(SERVE["decode_steps"]):
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    state, _ = eng.decode(state)
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t)
-                rec["decode_step_s"] = times
-                if m is not None:
-                    counter = RankCounter()
-                    with counter, CommDebugMode() as cm:
-                        state, _ = eng.decode(state)
-                    rec["comms_a_step"] = int(cm.get_total_counts())
-                    rec["comms_by_op"] = {str(k): v for k, v in
-                                          cm.get_comm_counts().items()}
-                    rec["send_bytes_a_step"] = dict(counter.bytes)
+                rec.update(_decode_times(eng, state, SERVE["decode_steps"]))
             bf[kind, where] = rec
             del eng, state
             torch.cuda.empty_cache()
@@ -340,6 +343,209 @@ def serve_case(mesh_shape, dev):
     return res, ok
 
 
+def _decode_times(eng, state, steps):
+    """Synchronised host times of ``steps`` decode steps, then one more
+    step's collectives on a mesh: counts by op, bytes each rank sends,
+    and counts by op, local block shape and the port's three innermost
+    frames that called it (``_comm_sites``)."""
+    import torch
+    from repro_torch.launch.dryrun import RankCounter
+    from torch.distributed.tensor.debug import CommDebugMode
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = eng.decode(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    rec = {"decode_step_s": times}
+    if eng.mesh is not None:
+        counter = RankCounter()
+        with counter, CommDebugMode() as cm, _comm_sites() as sites:
+            eng.decode(state)
+        rec.update(comms_a_step=int(cm.get_total_counts()),
+                   comms_by_op={str(k): v for k, v in
+                                cm.get_comm_counts().items()},
+                   send_bytes_a_step=dict(counter.bytes),
+                   comm_sites=dict(sites.sites.most_common()))
+    return rec
+
+
+def _comm_sites():
+    """A dispatch mode that counts, in its ``sites`` Counter, the
+    collectives dispatched inside it by op, local block shape and the
+    port's three innermost frames above the call (``repro_torch`` files
+    only)."""
+    import collections
+    import traceback
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Sites(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.sites = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if "c10d" in func.namespace:
+                frames = [f for f in traceback.extract_stack()
+                          if "repro_torch" in f.filename][-3:]
+                where = " < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                   for f in reversed(frames))
+                shape = tuple(getattr(args[0], "shape", ()))
+                self.sites[f"{func.__name__} {shape} {where}"] += 1
+            return func(*args, **(kwargs or {}))
+    return Sites()
+
+
+def _logits_same_routing(cfg, params, dtype, mesh, dev, plain=False):
+    """One decode step's logits of chip_smoke's wave (``_wave_state``,
+    ``_decode_logits``) on one card, on ``mesh`` with its own routing, and
+    on ``mesh`` following the card's routing (``chip_smoke.Routes``
+    replayed call by call): |mesh - card|'s largest over the card's
+    largest |logit| and the argmax agreement of both mesh runs, and the
+    tokens whose experts the mesh's own routing changed. Every decode
+    step is fed the card's first tokens (a near-tie in a prefill's logits
+    would otherwise feed the step another token); whether each run's own
+    first tokens were the card's is printed. ``plain``: also the plain
+    ops on the same card and routing against the kernels, how far two
+    correct runs of one card part."""
+    import torch
+    from chip_smoke import Routes, routing_flips
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+    out, routes, first = {}, {}, {}
+    runs = [("one device", None, None, None), ("mesh", mesh, None, None),
+            ("mesh, same routing", mesh, "one device", None)]
+    if plain:
+        runs.append(("plain, same routing", None, "one device", tfm.PLAIN))
+    for where, m, replay, ops in runs:
+        with Routes(replay=routes[replay].calls if replay else None) as r:
+            eng, state = _wave_state(cfg, params, dtype, m, dev, ops=ops)
+            first[where] = shd.full(state.last_tok).clone()
+            out[where] = _decode_logits(eng, state, first["one device"])
+        routes[where] = r
+        del eng, state
+        torch.cuda.empty_cache()
+    res = {"same_routing": _rel_argmax(out["mesh, same routing"],
+                                       out["one device"]),
+           "own_routing": _rel_argmax(out["mesh"], out["one device"]),
+           "routing_flips": routing_flips(
+               routes["one device"].calls, routes["mesh"].calls,
+               cfg.num_layers - cfg.first_k_dense),
+           "first_tokens_equal": {
+               w: (t == first["one device"]).tolist()
+               for w, t in first.items() if w != "one device"}}
+    if plain:
+        res["plain_vs_kernels_one_device"] = _rel_argmax(
+            out["plain, same routing"], out["one device"])
+    return res
+
+
+def serve_moe_case(mesh_shape, dev):
+    import torch
+    from chip_smoke import (
+        REL_LOGITS_BF16, STEP_LENS, first_parting, half_depth, requests_of,
+        same_tokens, serve_once, well_conditioned)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import InferenceEngine
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    cfg = get_config(SERVE_MOE["arch"])
+    wave = lambda: requests_of(cfg.vocab_size, STEP_LENS, 32)
+    sharded = {"calls": 0}
+    real = moe.moe_block_sharded
+
+    def counted(*a, **k):
+        sharded["calls"] += 1
+        return real(*a, **k)
+    moe.moe_block_sharded = counted
+    try:
+        cfg4 = cfg.replace(num_layers=SERVE_MOE["f32_depth"])
+        p4 = tfm.init(cfg4, torch.Generator(device=dev).manual_seed(0))
+        well = well_conditioned(cfg4, p4)
+        eng = InferenceEngine(cfg4, mesh=mesh, slots=4, max_len=16,
+                              page_size=16, dtype=torch.float32, device=dev)
+        experts = str(tuple(eng.init_state(well).params["layers"][1]["ffn"][
+            "w_gate"].placements))
+        del eng
+        f32 = {}
+        for where, m in (("one device", None), ("mesh", mesh)):
+            sharded["calls"] = 0
+            f32[where] = serve_once(cfg4, dev, well, torch.float32,
+                                    {"mesh": m}, wave())
+            f32[where]["sharded_calls"] = sharded["calls"]
+        del p4, well
+        torch.cuda.empty_cache()
+        # float32 at full depth on the rescaled weights (the card holds
+        # them once: both engines use the same tensors, the mesh's blocks
+        # views of them): one decode step's logits on and off the mesh
+        p32 = well_conditioned(cfg, tfm.init(
+            cfg, torch.Generator(device=dev).manual_seed(0)), in_place=True)
+        f32_full = _logits_same_routing(cfg, p32, torch.float32, mesh, dev)
+        del p32
+        torch.cuda.empty_cache()
+        pbf = tfm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       dtype=torch.bfloat16)
+        # bf16 on the rescaled weights: the logits at 4, 8, 16 and all 28
+        # layers (with one card's plain-vs-kernel gap at 28); the init
+        # law's wave served and timed
+        bf_logits = {}
+        for depth in SERVE_MOE["bf16_depths"]:
+            cfg_d, p_d = half_depth(cfg, pbf, depth)
+            bf_logits[depth] = _logits_same_routing(
+                cfg_d, well_conditioned(cfg_d, p_d), torch.bfloat16, mesh,
+                dev, plain=depth == cfg.num_layers)
+        bf = {}
+        for where, m in (("one device", None), ("mesh", mesh)):
+            r = serve_once(cfg, dev, pbf, torch.bfloat16, {"mesh": m},
+                           wave())
+            eng, state = _wave_state(cfg, pbf, torch.bfloat16, m, dev,
+                                     extra_len=SERVE_MOE["decode_steps"] + 1)
+            bf[where] = {"run": r, **_decode_times(
+                eng, state, SERVE_MOE["decode_steps"])}
+            del eng, state
+            torch.cuda.empty_cache()
+    finally:
+        moe.moe_block_sharded = real
+    same = f32["mesh"]["gen"] == f32["one device"]["gen"]
+    res = {"arch": cfg.name, "mesh": list(mesh_shape),
+           "expert_placements": experts,
+           "f32_layers": SERVE_MOE["f32_depth"], "f32_streams_equal": same,
+           "f32_first_parting": first_parting(f32["mesh"]["gen"],
+                                              f32["one device"]["gen"]),
+           "f32_launches": {w: r["launches"] for w, r in f32.items()},
+           "f32_sharded_moe_calls": {w: r["sharded_calls"]
+                                     for w, r in f32.items()},
+           "bf16_equal_token_share": same_tokens(
+               bf["mesh"]["run"]["gen"], bf["one device"]["run"]["gen"]),
+           "bf16_first_parting": first_parting(
+               bf["mesh"]["run"]["gen"], bf["one device"]["run"]["gen"]),
+           "bf16_tok_per_s": {w: r["run"]["tok_per_s"]
+                              for w, r in bf.items()},
+           "bf16_launches": {w: r["run"]["launches"] for w, r in bf.items()},
+           "decode_step_p50_s": {w: _median(r["decode_step_s"][1:])
+                                 for w, r in bf.items()},
+           "decode_step_s": {w: r["decode_step_s"] for w, r in bf.items()},
+           "comms_a_step": bf["mesh"]["comms_a_step"],
+           "comms_by_op": bf["mesh"]["comms_by_op"],
+           "send_bytes_a_step": bf["mesh"]["send_bytes_a_step"],
+           "comm_sites": bf["mesh"]["comm_sites"],
+           "f32_full_depth_logits": f32_full,
+           "bf16_rescaled_logits": bf_logits}
+    ok = (same and f32["mesh"]["launches"] == f32["one device"]["launches"]
+          and f32_full["same_routing"][0] <= F32_FULL_REL
+          and all(r["same_routing"][0] <= REL_LOGITS_BF16
+                  for r in bf_logits.values())
+          and f32["mesh"]["launches"]["paged_attn"] > 0
+          and f32["mesh"]["sharded_calls"] > 0
+          and f32["one device"]["sharded_calls"] == 0
+          and bf["mesh"]["run"]["launches"]
+          == bf["one device"]["run"]["launches"])
+    return res, ok
+
+
 def worker(rank: int, world: int, port: int, only=()) -> None:
     import torch
     import torch.distributed as dist
@@ -360,6 +566,7 @@ def worker(rank: int, world: int, port: int, only=()) -> None:
                 MOE, s, dev, torch.float32, False, 1e-4)),
             ("serve", (world // 2, 2), lambda s: serve_case(s, dev)),
             ("serve", (1, world), lambda s: serve_case(s, dev)),
+            ("serve_moe", (1, world), lambda s: serve_moe_case(s, dev)),
         ]
         for name, shape, run in cases:
             if only and name not in only:

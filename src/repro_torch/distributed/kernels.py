@@ -7,7 +7,8 @@ work local.
   the channels (``inner`` on "model") is kept, and the weights follow it;
 * the chunked SSD scan around the SSD-chunk kernel is per head: batch
   and heads stay split, each rank takes the ``B``/``C`` groups of its
-  heads, and ``A``, ``D`` follow the heads;
+  heads, and ``A``, ``D`` follow the heads; the SSM's recurrent form
+  (decode, chunks, verify) likewise, its state split as its rules say;
 * local attention is per head too: batch and query heads stay split.
   Where the KV heads are split alike, each rank's query groups meet their
   own KV heads. Where the KV heads are whole (``kv_heads`` does not divide
@@ -104,6 +105,20 @@ def ssd_chunked(scan: Callable, xh, dt, A, Bm, Cm, D):
     st = tuple(Shard(1) if p == Shard(2) else p for p in at)
     return local_kernel(body, [xh, dt, A, Bm, Cm, D],
                         [at, at, ht, bt, bt, ht], [at, st], grads=grads)
+
+
+def ssm_recurrence(fn: Callable, h, dA, xdt, Bh, Ch):
+    """``fn(h (B,H,P,N), dA (B,T,H), xdt (B,T,H,P), Bh/Ch (B,T,H,N))``,
+    the SSM's token-by-token state update and read-out
+    (``models.ssm._recurrence``), on local blocks of batch and heads ->
+    (y placed as ``xdt``, the last state placed as ``h``, the snapshots
+    (T,B,H,P,N) split alike). Heads that the model axis does not divide
+    are whole on every rank, as the state's rules place them."""
+    ht = _keep(h.placements, (0, 1))
+    tt = tuple(Shard(2) if p == Shard(1) else p for p in ht)   # (B,T,H,..)
+    st = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p for p in ht)
+    return local_kernel(fn, [h, dA, xdt, Bh, Ch], [ht, tt, tt, tt, tt],
+                        [tt, ht, st])
 
 
 def _head_plan(mesh, qt, kt, Hq: int, Hkv: int):

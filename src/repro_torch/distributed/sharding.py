@@ -358,6 +358,57 @@ def stacked_like(x, like):
     return x.redistribute(like.device_mesh, pl)
 
 
+class _PinGrad(torch.autograd.Function):
+    """The identity, whose backward redistributes a gradient whose token
+    dims would not fold cleanly (``_folds_cleanly``) to the forward
+    value's placements (a Partial one reduced)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g if _folds_cleanly(g) else to_placements(g, ctx.placements)
+
+
+def _folds_cleanly(x: DTensor) -> bool:
+    """Whether ``x``'s token dims (all but the last) fold into one whose
+    split is plain: only the first is split, and evenly, and no sum is
+    pending (a Partial one DTensor may reduce-scatter over the tokens)."""
+    ways = 1
+    for size, p in zip(x.device_mesh.shape, x.placements):
+        if p.is_partial():
+            return False
+        if isinstance(p, Shard):
+            if 0 < p.dim < x.ndim - 1:
+                return False
+            ways *= size if p.dim == 0 else 1
+    return x.shape[0] % ways == 0
+
+
+def pin_grad(x):
+    """``x``, whose gradient arrives placed as ``x`` is where its token
+    dims would not fold cleanly (the identity on a plain tensor or one
+    that needs no gradient). Behind a gate's product or a concatenation
+    of unlike placements DTensor may split a projection's output
+    gradient on "model" too: over the batch (a cheap plan, kept: the
+    matmul's backward then gathers the small weight, not the
+    activations), or over the sequence, or leave its sum over "model"
+    pending. Split over the sequence or over a batch that does not
+    divide, or reduce-scattered so, the weight gradient contracts a token
+    axis strided-split over "model", which DTensor plans from an index
+    tensor of the whole token axis: under fake tensors (the dry run) the
+    plan fails, and with the index arithmetic done on integers it took
+    ~2 min of CPU time for a 2-layer mamba2-130m step at (2, 16, 16).
+    There the gradient takes the forward value's placements."""
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    return _PinGrad.apply(x)
+
+
 def local(x) -> torch.Tensor:
     """``x``'s local block (``x`` itself for a plain tensor)."""
     return x.to_local() if isinstance(x, DTensor) else x
@@ -470,6 +521,29 @@ def weight_grad_placements(weight: Placements, act: Placements) -> Placements:
                  for w, a in zip(weight, act))
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _contiguous_grad(x):
+    """``x`` (a local block in a ``local_map`` body), whose gradient leaves
+    the body contiguous: a gradient that autograd computes as a transposed
+    view (an einsum's) would go back into a DTensor whose global strides
+    claim a layout its local block does not have, and a later view of it
+    (a matmul's backward folding (B, S) into one axis) fails."""
+    if isinstance(x, torch.Tensor) and x.requires_grad:
+        return _ContiguousGrad.apply(x)
+    return x
+
+
 def local_kernel(fn: Callable, args: Sequence[Any],
                  targets: Sequence[Optional[Placements]],
                  outs: Sequence[Placements], *,
@@ -489,7 +563,7 @@ def local_kernel(fn: Callable, args: Sequence[Any],
 
     def body(*local):
         with suspend_logical_sharding():
-            return fn(*local)
+            return fn(*(_contiguous_grad(t) for t in local))
     return local_map(body, out_placements=tuple(tuple(o) for o in outs),
                      in_placements=tuple(targets),
                      in_grad_placements=tuple(grads) if grads else None,

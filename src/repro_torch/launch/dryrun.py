@@ -32,7 +32,7 @@ on a card. Results go to ``results/dryrun_torch/<arch>__<shape>__<mesh>
 .json``.
 
 Usage:
-  python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k [--multipod]
+  python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k [--multipod] [--layers N]
   python -m repro_torch.launch.dryrun --all [--jobs N] [--timeout S]
 """
 from __future__ import annotations
@@ -46,6 +46,7 @@ import sys
 import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -138,13 +139,17 @@ def _quiet_propagation(counter: RankCounter):
 def run_one(arch: str, shape_name: str, *, multi_pod: bool,
             sequence_parallel: bool = False, tag: str = "",
             fsdp: bool = False, accum: int = 1, serve_bf16: bool = False,
-            out_dir: str = RESULTS_DIR) -> dict:
+            layers: Optional[int] = None, out_dir: str = RESULTS_DIR) -> dict:
+    """Rank 0's step of (arch, shape) on the production mesh; ``layers``
+    cuts the depth (widths, mesh and shape stay), for a quick check."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.steps import build_step, local_bytes
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=int(layers))
     mesh_name = "multipod" if multi_pod else "pod"
     fake_world(512 if multi_pod else 256)
     mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
@@ -165,7 +170,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
     rec = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "step_kind": kind, "tag": tag, "ranks": int(mesh.size()),
-        "mesh_shape": list(mesh.shape),
+        "mesh_shape": list(mesh.shape), "num_layers": cfg.num_layers,
         "build_s": round(build_s, 2), "run_s": round(run_s, 2),
         "opts": {"fsdp": fsdp, "grad_accum": accum, "serve_bf16": serve_bf16,
                  "sequence_parallel": sequence_parallel},
@@ -257,6 +262,8 @@ def main() -> None:
     ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--servebf16", action="store_true")
     ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers (widths unchanged)")
     ap.add_argument("--all", action="store_true",
                     help="the whole matrix on both meshes, a subprocess each")
     ap.add_argument("--jobs", type=int, default=1,
@@ -276,7 +283,8 @@ def main() -> None:
         ap.error("--arch and --shape (or --all, --list)")
     run_one(args.arch, args.shape, multi_pod=args.multipod,
             sequence_parallel=args.seqpar, tag=args.tag, fsdp=args.fsdp,
-            accum=args.accum, serve_bf16=args.servebf16, out_dir=args.out)
+            accum=args.accum, serve_bf16=args.servebf16, layers=args.layers,
+            out_dir=args.out)
 
 
 if __name__ == "__main__":

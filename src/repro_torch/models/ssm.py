@@ -105,11 +105,11 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 def _project(params, cfg: ModelConfig, x: torch.Tensor):
     """x (B,S,d) -> z, xBC (pre-conv), dt."""
-    z = x @ params["w_in_z"].to(x.dtype)
-    xb = x @ params["w_in_x"].to(x.dtype)
-    Bp = x @ params["w_in_B"].to(x.dtype)
-    Cp = x @ params["w_in_C"].to(x.dtype)
-    dt = x @ params["w_in_dt"].to(x.dtype)
+    # on a mesh a projection's gradient that DTensor would leave with token
+    # dims that do not fold cleanly takes its own placements
+    # (``sharding.pin_grad``)
+    z, xb, Bp, Cp, dt = (shd.pin_grad(x @ params[k].to(x.dtype)) for k in (
+        "w_in_z", "w_in_x", "w_in_B", "w_in_C", "w_in_dt"))
     return z, torch.cat([xb, Bp, Cp], dim=-1), dt
 
 
@@ -257,20 +257,13 @@ def ssm_steps(params, cfg: ModelConfig, x: torch.Tensor, state: SSMState, *,
     dA = torch.exp(dt1.float() * _decay_rate(params))           # (B,T,H)
     xdt = (xh * dt1[..., None]).float()                         # (B,T,H,P)
     Bh, Ch = Bh.float(), Ch.float()
-    h = state.h
-    hs, ys = [], []
-    for t in range(T):
-        h = constrain(h * dA[:, t, :, None, None]
-                      + xdt[:, t, :, :, None] * Bh[:, t, :, None, :],
-                      ("batch", "heads", None, "state"))
-        # on a mesh a sum over N, which splits no dim: the einsum's bmm
-        # would merge the split batch and head dims
-        ys.append((h * Ch[:, t, :, None, :]).sum(-1)
-                  if shd.is_distributed(h)
-                  else torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
-        if snapshots:
-            hs.append(h)
-    y = torch.stack(ys, dim=1)                                  # (B,T,H,P) float32
+    args = (state.h, dA, xdt, Bh, Ch)
+    if shd.is_distributed(state.h):
+        # per slot and head: on local blocks of batch and heads
+        y, h, hs = dk.ssm_recurrence(
+            functools.partial(_recurrence, snapshots=snapshots), *args)
+    else:
+        y, h, hs = _recurrence(*args, snapshots=snapshots)
     y = constrain(y + xh.float() * params["D"].float()[:, None],
                   ("batch", "seq", "heads", None))
     y = y.reshape(Bsz, T, H * P).to(x.dtype)
@@ -278,8 +271,23 @@ def ssm_steps(params, cfg: ModelConfig, x: torch.Tensor, state: SSMState, *,
     out = y @ params["w_out"].to(x.dtype)
     if snapshots:
         tails = tail_snapshots(xBC_raw, state.conv, K).float()
-        return out, SSMState(h=torch.stack(hs), conv=tails)
+        return out, SSMState(h=hs, conv=tails)
     return out, SSMState(h=h, conv=tail.float())
+
+
+def _recurrence(h, dA, xdt, Bh, Ch, *, snapshots: bool = False):
+    """The state update and its read-out, token after token: h (B,H,P,N)
+    float32, dA (B,T,H), xdt (B,T,H,P), Bh/Ch (B,T,H,N) -> (y (B,T,H,P),
+    the last state, the state after every token stacked on a leading T
+    axis (``snapshots``) or the last state again)."""
+    hs, ys = [], []
+    for t in range(dA.shape[1]):
+        h = h * dA[:, t, :, None, None] \
+            + xdt[:, t, :, :, None] * Bh[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+        if snapshots:
+            hs.append(h)
+    return torch.stack(ys, dim=1), h, torch.stack(hs) if snapshots else h
 
 
 def ssm_decode_step(params, cfg: ModelConfig, x: torch.Tensor,

@@ -385,7 +385,8 @@ def embed_inputs(params: Params, cfg: ModelConfig,
         h = F.gelu(inputs["patches"].to(dtype) @ f["w1"].to(dtype)
                    + f["b1"].to(dtype), approximate="tanh")
         img = h @ f["w2"].to(dtype) + f["b2"].to(dtype)
-        return shd.constrain(torch.cat([img, txt], dim=1),
+        return shd.constrain(torch.cat([shd.pin_grad(img),
+                                        shd.pin_grad(txt)], dim=1),
                              ("batch", "seq", "embed"))
     return txt
 

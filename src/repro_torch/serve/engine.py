@@ -218,10 +218,14 @@ class InferenceEngine:
     def _place(self, state: InferenceState,
                placements: InferenceState) -> InferenceState:
         """``state``'s full tensors as DTensors with ``placements``, each
-        rank keeping its block."""
+        rank keeping its block; a leaf that is a DTensor already (params
+        adopted from a training engine on this mesh) is redistributed
+        device to device, a no-op where its placements are these."""
         def walk(pl, t):
             if pl is None:
                 return t
+            if shd.is_distributed(t):
+                return shd.to_placements(t, pl)
             if isinstance(t, torch.Tensor):
                 return shd.distribute(t, self.mesh, pl, self.device)
             if isinstance(t, dict):
@@ -249,25 +253,42 @@ class InferenceEngine:
                          max_len: int = 64, dtype: torch.dtype = torch.bfloat16,
                          **kw) -> tuple["InferenceEngine", InferenceState]:
         """Adopt a trained state of an LM ``train.Engine`` (``for_lm``) on
-        its device: its flat params as the per-layer tree, without the
-        replica axis, cast to the serving ``dtype`` (a float32 leaf is
-        shared, not copied). The train state must not be stepped
-        afterwards: the serving state may share its tensors."""
-        eng = cls(train_engine.cfg, slots=slots, max_len=max_len,
-                  dtype=dtype, device=train_engine.device, **kw)
-        tree = train_engine.params_tree(train_state)
-        if train_engine.mesh is not None:
-            raise ValueError("from_train_state adopts a one-device training "
-                             "state; gather a mesh's with host_state first")
-        return eng, eng.init_state(tree)
+        its device, or on its mesh with its rule table: its flat params as
+        the per-layer tree, without the replica axis, cast to the serving
+        ``dtype`` (a float32 leaf is shared, not copied). On a mesh the
+        params stay on the ranks: a leaf the serving rules place as the
+        training ones did is kept as it is, and the FSDP layout
+        (``tc.fsdp``: embed over the batch axes) is redistributed device
+        to device, an all-gather over those axes; nothing goes through
+        the host. The train state must not be stepped afterwards: the
+        serving state may share its tensors."""
+        eng = cls(train_engine.cfg, mesh=train_engine.mesh, slots=slots,
+                  max_len=max_len, dtype=dtype, device=train_engine.device,
+                  **kw)
+        return eng, eng.init_state(train_engine.params_tree(train_state))
 
     def restore_params(self, path: str, example_params: Any) -> Any:
         """The ``params`` subtree of a TrainState .npz in the reference's
         layout (its key paths: ``params/blocks/<i>/attn/wq`` stacked over
         the repetitions, ``params/prefix/<j>/...``), restored into
         ``example_params``' layers, shapes, dtypes and device — the CLI
-        hand-off without touching optimizer moments."""
-        return restore_lm_params(path, example_params, prefix="params")
+        hand-off without touching optimizer moments. On a mesh each leaf
+        is placed as its example (every rank reads the file and keeps its
+        block)."""
+        got = restore_lm_params(path, example_params, prefix="params")
+        if self.mesh is None:
+            return got
+
+        def place(g, ex):
+            if isinstance(ex, dict):
+                return {k: place(g[k], v) for k, v in ex.items()}
+            if isinstance(ex, list):
+                return [place(a, b) for a, b in zip(g, ex)]
+            if shd.is_distributed(ex):
+                return shd.distribute(g, self.mesh, ex.placements,
+                                      self.device)
+            return g
+        return place(got, example_params)
 
     def assign_pages(self, state: InferenceState, slot: int, pages,
                      fresh=None) -> InferenceState:

@@ -148,7 +148,8 @@ class ModelDrafter:
     def from_checkpoint(cls, cfg: ModelConfig, path: str,
                         **kw) -> "ModelDrafter":
         """Params subtree of a TrainState .npz in the reference's layout —
-        the same ``restore_params`` hand-off the target engine uses."""
+        the same ``restore_params`` hand-off the target engine uses, onto
+        the draft engine's placements with ``mesh=``."""
         d = cls(cfg, **kw)
         params = d.engine.restore_params(path, d.state.params)
         d.state = d.state._replace(params=params)
@@ -158,10 +159,10 @@ class ModelDrafter:
     def from_train_state(cls, train_engine, train_state,
                          **kw) -> "ModelDrafter":
         """Adopt a live trained LM state (``train.Engine.for_lm``) on the
-        train engine's device, as ``InferenceEngine.from_train_state``
-        does."""
+        train engine's device or mesh, as ``InferenceEngine.
+        from_train_state`` does (no host gather)."""
         return cls(train_engine.cfg, train_engine.params_tree(train_state),
-                   device=train_engine.device, **kw)
+                   mesh=train_engine.mesh, device=train_engine.device, **kw)
 
     # -- the drafting round ------------------------------------------------
     def _assign(self, slot: int) -> None:

@@ -309,60 +309,205 @@ def record_decode_logits(eng) -> list:
     return seen
 
 
-def serve_runs(rank, world, *, mesh_shape, runs):
-    """Serve each run's queue on one mesh: ``runs`` a list of dicts with
-    ``arch`` (smoke config), ``params`` (the port's per-layer tree as
-    numpy), ``engine`` and ``sched`` options, ``requests`` ((prompt,
-    max_new, sampling dict or None) each) and ``drafter``: None,
-    ``("script", j, run index whose streams are the truth)`` or
-    ``("model",)`` (the target's own config and params on the mesh).
-    Returns each run's streams, scheduler counts and decode steps' logits
-    (``record_decode_logits``), and the placements of every DTensor leaf
-    of the first run's state."""
+def smoke_cfg(arch, changes=None):
+    """The smoke config of ``arch`` with ``changes`` (config fields; a
+    ``moe`` entry is a dict of the MoE config's fields)."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_variant
+    cfg = smoke_variant(get_config(arch))
+    changes = dict(changes or {})
+    if "moe" in changes:
+        changes["moe"] = dataclasses.replace(cfg.moe, **changes["moe"])
+    return cfg.replace(**changes) if changes else cfg
+
+
+def _tree_of(a):
+    """A numpy tree as torch tensors (copies)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config, smoke_variant
-    from repro_torch.serve import (
-        InferenceEngine, ModelDrafter, Request, SamplingParams, Scheduler,
-    )
-    mesh = _mesh(mesh_shape)
-    out = []
+    if isinstance(a, dict):
+        return {k: _tree_of(v) for k, v in a.items()}
+    if isinstance(a, list):
+        return [_tree_of(v) for v in a]
+    return torch.from_numpy(np.array(a))
 
-    def tree_of(a):
-        if isinstance(a, dict):
-            return {k: tree_of(v) for k, v in a.items()}
-        if isinstance(a, list):
-            return [tree_of(v) for v in a]
-        return torch.from_numpy(np.array(a))
+
+def _request_list(requests):
+    """``Request`` objects of (prompt, max_new, sampling dict or None[,
+    extras]) tuples."""
+    import numpy as np
+    from repro_torch.serve import Request, SamplingParams
+    return [Request(rid=i, prompt=np.asarray(r[0], np.int32), max_new=r[1],
+                    sampling=SamplingParams(**r[2]) if r[2]
+                    else SamplingParams(),
+                    extras={k: np.array(v) for k, v in
+                            (r[3] if len(r) > 3 else {}).items()})
+            for i, r in enumerate(requests)]
+
+
+def serve_runs(rank, world, *, mesh_shape, runs):
+    """Serve each run's queue on one mesh (``serve_all``)."""
+    return serve_all(runs, mesh_shape)
+
+
+def serve_all(runs, mesh_shape=None):
+    """Serve each run's queue on the mesh of ``mesh_shape``, or on one
+    device without one: ``runs`` a list of dicts with ``arch`` (smoke
+    config, changed by ``cfg``: ``smoke_cfg``), ``params`` (the port's
+    per-layer tree as numpy), ``engine`` and ``sched`` options,
+    ``requests`` ((prompt, max_new, sampling dict or None[, extras such
+    as a VLM's patches]) each) and ``drafter``: None, ``("script", j, run
+    index whose streams are the truth)``, ``("model",)`` (the target's
+    own config and params, on the mesh) or ``("ngram",)``. Returns each
+    run's streams, scheduler counts and decode steps' logits
+    (``record_decode_logits``), and the placements of every DTensor leaf
+    of its state."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import (
+        InferenceEngine, ModelDrafter, NgramDrafter, Scheduler,
+    )
+    mesh = _mesh(mesh_shape) if mesh_shape else None
+    out = []
+    calls = _count_local_calls() if mesh is not None else {}
     for run in runs:
-        cfg = smoke_variant(get_config(run["arch"]))
+        calls.clear()
+        cfg = smoke_cfg(run["arch"], run.get("cfg"))
         dtype = getattr(torch, run.get("dtype", "float32"))
         eng = InferenceEngine(cfg, mesh=mesh, device="cpu", dtype=dtype,
                               **run["engine"])
-        state = eng.init_state(tree_of(run["params"]))
+        state = eng.init_state(_tree_of(run["params"]))
         logits = record_decode_logits(eng)
         drafter = None
         kind = run.get("drafter")
         if kind and kind[0] == "script":
             truth = out[kind[2]]["streams"]
             drafter = ScriptedDrafter(
-                {np.asarray(p, np.int32).tobytes(): truth[i]
-                 for i, (p, _, _) in enumerate(run["requests"])},
+                {np.asarray(r[0], np.int32).tobytes(): truth[i]
+                 for i, r in enumerate(run["requests"])},
                 cfg.vocab_size, kind[1])
         elif kind and kind[0] == "model":
-            drafter = ModelDrafter(cfg, tree_of(run["params"]), mesh=mesh,
+            drafter = ModelDrafter(cfg, _tree_of(run["params"]), mesh=mesh,
                                    slots=eng.slots, max_len=eng.max_len,
                                    page_size=4, catch_up_chunk=4,
                                    dtype=dtype, device="cpu")
+        elif kind and kind[0] == "ngram":
+            drafter = NgramDrafter()
         sched = Scheduler(eng, state, drafter=drafter, **run["sched"])
-        reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), max_new=n,
-                        sampling=SamplingParams(**s) if s else SamplingParams())
-                for i, (p, n, s) in enumerate(run["requests"])]
-        streams = sched.run(reqs)
+        streams = sched.run(_request_list(run["requests"]))
         out.append({"streams": {k: [int(t) for t in v]
                                 for k, v in streams.items()},
                     "stats": dict(sched.stats),
                     "decode_logits": logits,
-                    "placements": (_placement_strs(state._asdict())
-                                   if not out else None)})
+                    "local_calls": dict(calls),
+                    "placements": _placement_strs(state._asdict())})
+    return out
+
+
+def _count_local_calls():
+    """Count the calls of the kernels on local blocks
+    (``distributed/kernels.py``) and of the expert-parallel MoE block, by
+    name, in the returned dict (patched for the process)."""
+    from collections import Counter
+    from repro_torch.distributed import kernels as dk
+    from repro_torch.models import moe
+    calls = Counter()
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def run(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        setattr(mod, name, run)
+    for name in ("conv1d", "ssd_chunked", "ssm_recurrence",
+                 "local_attention", "paged_attention", "attend_masked"):
+        counted(dk, name)
+    counted(moe, "moe_block_sharded")
+    return calls
+
+
+def handoff_runs(rank, world, *, mesh_shape, arch, params, batches, tc,
+                 engine, requests, path, spec_k=3):
+    """Training to serving on one mesh: an LM engine (float32, ``tc``,
+    with or without ``fsdp``) trained a step a batch from the given host
+    params, then served by ``InferenceEngine.from_train_state`` on the
+    same mesh (``DTensor.full_tensor`` and ``Engine.host_state`` refused
+    while it adopts the params), and by the same engine with a
+    ``ModelDrafter.from_checkpoint(..., mesh=)`` of the state saved to
+    ``path`` drafting ``spec_k`` tokens. Returns the trained params
+    (gathered, for the one-device hand-off), both runs' streams and
+    counts, the adopted params' placements against the training ones,
+    whether each adopted float32 leaf kept the training block's storage,
+    and the drafter's placements."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import TrainConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.serve import InferenceEngine, ModelDrafter, Scheduler
+    from repro_torch.train import Engine
+    cfg = smoke_cfg(arch)
+    mesh = _mesh(mesh_shape)
+    eng = Engine.for_lm(cfg, TrainConfig(**tc), device="cpu",
+                        dtype=torch.float32, mesh=mesh)
+    state = eng.init_state(_tree_of(params))
+    for b in batches:
+        state, _ = eng.step(state, eng.place_batch(b))
+    host = eng.host_state(state)
+    eng.save(path, state)
+
+    def refuse(*a, **k):
+        raise AssertionError("the hand-off went through the host")
+    saved = DTensor.full_tensor, Engine.host_state
+    DTensor.full_tensor, Engine.host_state = refuse, refuse
+    try:
+        srv, sstate = InferenceEngine.from_train_state(
+            eng, state, dtype=torch.float32, **engine)
+    finally:
+        DTensor.full_tensor, Engine.host_state = saved
+    trained = eng.params_tree(state)
+    flat_t, flat_s = _flat_leaves(trained), _flat_leaves(sstate.params)
+    shared = {k: flat_s[k].to_local().data_ptr()
+              == flat_t[k].to_local().data_ptr() for k in flat_s}
+    want = {k: str(tuple(v)) for k, v in _flat_leaves(
+        srv.state_shardings(sstate).params).items()}
+    got = {k: str(tuple(v.placements)) for k, v in flat_s.items()}
+    sched = Scheduler(srv, sstate)
+    streams = sched.run(_request_list(requests))
+    drafter = ModelDrafter.from_checkpoint(
+        cfg, path, mesh=mesh, slots=srv.slots, max_len=srv.max_len,
+        page_size=4, catch_up_chunk=4, dtype=torch.float32, device="cpu")
+    dparams = _flat_leaves(drafter.state.params)
+    dsame = all(shd.is_distributed(v) and str(tuple(v.placements)) == got[k]
+                for k, v in dparams.items())
+    dvalues = {k: float((shd.full(v) - shd.full(flat_s[k])).abs().max())
+               for k, v in dparams.items()}
+    srv2, st2 = InferenceEngine.from_train_state(eng, state,
+                                                 dtype=torch.float32,
+                                                 **engine)
+    sched2 = Scheduler(srv2, st2, drafter=drafter, spec_k=spec_k)
+    spec = sched2.run(_request_list(requests))
+    return {"params": {k: v.numpy()[0] for k, v in host.params.items()}
+            if rank == 0 else None,
+            "streams": {k: [int(t) for t in v] for k, v in streams.items()},
+            "spec_streams": {k: [int(t) for t in v] for k, v in spec.items()},
+            "spec_stats": dict(sched2.stats),
+            "placements": got, "want_placements": want,
+            "training_placements": {k: str(tuple(v.placements))
+                                    for k, v in flat_t.items()},
+            "shared": shared, "drafter_placed": dsame,
+            "drafter_err": max(dvalues.values())}
+
+
+def _flat_leaves(tree, key=""):
+    """{'/'-joined path: leaf} of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {key: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat_leaves(v, f"{key}/{k}" if key else str(k)))
     return out
