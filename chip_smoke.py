@@ -21,8 +21,10 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    elements that differ from the plain output at all): Pix-Con (also
    ``normalize=False``, a temperature other than 1, and near ties: pixels
    whose features differ in one last bit, ``w`` to the bit and the same
-   ranking; and the training shapes R=23 B=32, R=23 B=8, R=1 B=32),
-   the LSTM step (also the same training shapes, H not a multiple
+   ranking; the training shapes R=23 B=32, R=23 B=8, R=1 B=32; and
+   phase 17's drivers' R=23 B=64 and B=74, R=1 B=64 and B=67),
+   the LSTM step (also the same training and drivers' shapes, the
+   drivers' with D=32 too, H not a multiple
    of its 8-unit tile, D=1, and D+H that walks the weight ring), paged
    attention
    (decode, verify and a 128-token prefill chunk of qwen2-1.5b and of
@@ -31,13 +33,18 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    (G=1) decode, qwen3-moe-30b-a3b's decode and verify (G=8),
    deepseek-moe-16b's decode (G=1 on 16 KV heads) and internvl2-2b's
    decode and verify (G=2, 50-page rows), plus small shapes with
-   a window, a softcap, unassigned pages and an empty row),
+   a window, a softcap, unassigned pages and an empty row, and phase
+   17's served drivers' smoke shapes: 4 query heads on 1, 2 and 4, D=64,
+   8- and 16-token pages),
    the causal conv1d (mamba2-130m's and recurrentgemma-2b's prefill and
-   step shapes, C not a multiple of 128 or of the 8-channel vector, S=1
+   step shapes, the drivers' mamba2-130m training step B=8 S=256 and
+   their served smoke chunks and verify steps, C not
+   a multiple of 128 or of the 8-channel vector, S=1
    and S=2 with a tail, S > 2,048, S < K-1, an input viewed at an odd
    storage offset, at a decode size and at a size the 16-byte path would
    take, which must go the scalar path; K=5; the new tail it writes to the
-   bit), the SSD chunk (mamba2-130m's 512-token prefill, Q in {5, 200,
+   bit), the SSD chunk (mamba2-130m's 512-token prefill and the
+   drivers' training step, 8 rows of one 256-row chunk, Q in {5, 200,
    256}, and the bf16 kernel's tile edges: Q from 1 to 256 on each side
    of 16 and 64, N in {16, 20, 128}, P in {24, 64}, 2 batch rows of 2
    chunks, in both dtypes) and local attention (recurrentgemma-2b's
@@ -292,12 +299,30 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    to one device's; then phase 14's trained mamba2-130m adopted on its
    mesh by ``InferenceEngine.from_train_state``, its streams and
    launches equal to the one-device engine's on the gathered state;
-17. one JSON line listing every ported kernel with its error, times, bound
-   and launches (by model and mode; Pix-Con and the LSTM step by path,
-   forecast and training, on and off the mesh, with their times at the
-   training shapes; conv1d, the SSD chunk and local attention with their
-   training shapes), then the line with the card's name and power limit;
-18. the last line, ``{"ok": true, "device": {...}}``.
+17. the user-facing drivers (``drivers_main_path``), each ``main()`` with
+   its own launch counts: ``examples/train_flood_torch.py`` at its
+   defaults (all 23 watersheds x 400 days, 6 epochs of stacked steps
+   through ``Engine`` and ``ShardedLoader``, Dom-ST then the Singlehead
+   ablation; the held-out NSE per watershed of both and Dom-ST's share of
+   wins printed, the share not gated), ``quickstart_torch.py`` (300 steps
+   through the seed-era ``domst.make_train_step``), ``train_lm_torch.py
+   --full`` (mamba2-130m, 8 x 256, ``DRIVER_LM_STEPS`` steps),
+   ``serve_lm_torch.py`` (five families at their smoke configs through
+   ``serve(args)``, then the shared-prefix workload) and
+   ``scripts/ci_smoke_torch.py``'s four checks in-process with their own
+   assertions; every loss and NSE finite, both variants' and the
+   quickstart's losses falling, each driver's launches as
+   ``scripts/drivers_rehearsal.py`` counts them (``DRIVER_LAUNCHES``: the
+   training drivers' exactly, the served ones' more than 0; serve_lm's
+   demo admits every prompt in 8-token chunks, so it launches no
+   local_attn or ssd_chunk), the wall time of each printed;
+18. one JSON line listing every ported kernel with its error, times, bound
+   and launches (by model and mode; by path: Pix-Con and the LSTM step in
+   the forecast and training, on and off the mesh, with their times at
+   the training shapes, and every kernel in phase 17's drivers; conv1d,
+   the SSD chunk and local attention with their training shapes), then
+   the line with the card's name and power limit;
+19. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card. ``torch.compile`` (the flex_attention yardstick)
 keeps its caches under ``build/`` and compiles in this process. Without CUDA, or run from a directory that does not
@@ -335,6 +360,13 @@ TRAIN_EPOCHS, TRAIN_BATCH, TRAIN_SEQ_WATERSHEDS = 5, 32, 3
 # sequential (one replica)
 TRAIN_RB = ((WATERSHEDS, TRAIN_BATCH), (WATERSHEDS, TRAIN_BATCH // 4),
             (1, TRAIN_BATCH))
+# kernel shapes of the drivers (phase 17, scripts/drivers_rehearsal.py
+# --shapes): train_flood's stacked step and held-out forward (74 test
+# windows a watershed), the quickstart's step and test forward (67)
+DRIVER_RB = ((WATERSHEDS, 64), (WATERSHEDS, 74), (1, 64), (1, 67))
+# phase 2 draws the drivers' shapes' inputs from a generator of this seed,
+# so that every other check draws what it drew before they were added
+DRIVER_SEED = 1717
 # gradients through the kernels against the plain run's, of each leaf's
 # largest |grad|; the losses of 5 steps, relative; accumulation against
 # one batch, of each leaf's largest |update| (one unclipped SGD step's
@@ -615,8 +647,11 @@ def check_pixcon(g, dev) -> dict:
              ((3, 5, 17, 48), True, 1.0),
              ((3, 5, 17, 48), False, 0.7)]
     cases += [((R, B, 30, 64), True, 1.0) for R, B in TRAIN_RB]
-    for shape, normalize, temp in cases:
-        a = pixcon_inputs(g, dev, *shape)
+    gd = torch.Generator().manual_seed(DRIVER_SEED)
+    cases = [(*c, g) for c in cases] + [
+        ((R, B, 30, 64), True, 1.0, gd) for R, B in DRIVER_RB]
+    for shape, normalize, temp, gen in cases:
+        a = pixcon_inputs(gen, dev, *shape)
         out, w = pixcon_gate(**a, normalize=normalize, temperature=temp)
         torch.cuda.synchronize()
         ref_out, ref_w = pixcon_gate_ref(**a, normalize=normalize,
@@ -689,10 +724,15 @@ def check_lstm(g, dev) -> dict:
     # beside them: several examples a block, H not a multiple of the unit
     # tile, D = 1, and a K that walks the weight tile through the ring
     train_shapes = [(R, B, D, 64) for R, B in TRAIN_RB for D in (128, 64)]
-    for shape in main_shapes + train_shapes + [
+    # the drivers' (Singlehead's first layer takes D=32)
+    driver_shapes = [(R, B, D, 64) for R, B in DRIVER_RB
+                     for D in (128, 64, 32)]
+    gd = torch.Generator().manual_seed(DRIVER_SEED)
+    for shape, gen in [(s, g) for s in main_shapes + train_shapes] + [
+            (s, gd) for s in driver_shapes] + [(s, g) for s in [
             (3, 5, 48, 160), (1, WATERSHEDS, 128, 64), (4, 2, 7, 50),
-            (5, 3, 1, 64), (2, 3, 4000, 64)]:
-        a = lstm_inputs(g, dev, *shape)
+            (5, 3, 1, 64), (2, 3, 4000, 64)]]:
+        a = lstm_inputs(gen, dev, *shape)
         h, c = lstm_cell_fused(**a)
         torch.cuda.synchronize()
         ref_h, ref_c = lstm_cell_ref(**a)
@@ -1393,13 +1433,28 @@ def check_paged_attn(g, dev) -> dict:
     # that every later check of phase 2 draws from ``g`` stay those of the
     # runs before these shapes were added
     g_iv = torch.Generator().manual_seed(2222)
+    gd = torch.Generator().manual_seed(DRIVER_SEED)
 
     def gen_of(name):
-        return g_iv if name.startswith("iv_") else g
+        return (g_iv if name.startswith("iv_") else
+                gd if name.startswith("drivers_") else g)
     small = [dict(B=3, T=7, Hq=4, Hkv=1, D=64, ps=4, n=6, lens=[13, 0, 9],
                   window=5, softcap=50.0),
              dict(B=2, T=3, Hq=8, Hkv=2, D=128, ps=16, n=3, lens=[20, 33],
                   window=0, softcap=30.0)]
+    # phase 17's served drivers at their smoke configs (4 query heads,
+    # D=64): serve_lm's 8-token pages, decode and verify on 3 slots with
+    # recurrentgemma's window of 16 or gemma2's softcap of 50, an 8-token
+    # chunk; ci_smoke's 16-token pages
+    drivers = {
+        "drivers_decode": dict(B=3, T=1, Hq=4, Hkv=1, D=64, ps=8, n=6,
+                               lens=[20, 13, 41], window=16, softcap=0.0),
+        "drivers_verify": dict(B=3, T=4, Hq=4, Hkv=2, D=64, ps=8, n=4,
+                               lens=[12, 30, 25], window=16, softcap=50.0),
+        "drivers_chunk": dict(B=1, T=8, Hq=4, Hkv=4, D=64, ps=8, n=6,
+                              lens=[40], window=0, softcap=0.0),
+        "drivers_ci": dict(B=2, T=5, Hq=4, Hkv=1, D=64, ps=16, n=2,
+                           lens=[9, 20], window=0, softcap=0.0)}
     err = {"float32": 0.0, "bfloat16": 0.0}
     for dtype, atol in ((torch.float32, ATOL_KERNEL),
                         (torch.bfloat16, ATOL_BF16)):
@@ -1407,6 +1462,7 @@ def check_paged_attn(g, dev) -> dict:
         wide = dict(B=4, T=LM_CHUNK, lens=mid, **qwen)
         cases = [*main.items(), ("chunk_4slots", wide)]
         cases += [(f"small{i}", c) for i, c in enumerate(small)]
+        cases += list(drivers.items())
         for name, c in cases:
             kw = dict(window=c["window"], softcap=c["softcap"])
             a = paged_inputs(gen_of(name), dev, dtype, c["B"], c["T"], c["Hq"],
@@ -1536,7 +1592,9 @@ def check_conv1d(g, dev) -> dict:
     """The conv1d kernel against its plain version at the main path's
     shapes (mamba2-130m's 512-token prefill layer with SiLU, C=1,792;
     recurrentgemma-2b's 2,560-token prefill layer without, C=2,560; a
-    4-slot decode step with a tail) and ragged ones (C not a multiple of
+    4-slot decode step with a tail; the drivers' mamba2-130m training
+    step, B=8 S=256, and their served smoke chunk and verify steps) and
+    ragged ones (C not a multiple of
     128 or of the 8-channel vector, S=1 and S=2 with a tail, S > 2,048,
     S < K-1, an input that is a view at an odd storage offset, at a decode
     size and at one the 16-byte path would take, K=5 read without the
@@ -1560,14 +1618,23 @@ def check_conv1d(g, dev) -> dict:
              ("s_below_k", 3, 2, 96, 4, "silu", True, 0),
              ("odd_offset", 2, 1, 1792, 4, "silu", True, 1),
              ("odd_offset_wide", 1, 128, 1792, 4, "silu", True, 1),
-             ("k5", 2, 19, 512, 5, "silu", True, 0)]
+             ("k5", 2, 19, 512, 5, "silu", True, 0),
+             # phase 17's: train_lm --full (a mamba2-130m step, 8 x 256);
+             # serve_lm's smoke mamba2 and recurrentgemma, a chunk and
+             # a verify on 3 slots
+             ("drivers_train_lm", 8, 256, 1792, 4, "silu", False, 0),
+             ("drivers_mamba2_chunk", 1, 8, 544, 4, "silu", True, 0),
+             ("drivers_mamba2_verify", 3, 4, 544, 4, "silu", True, 0),
+             ("drivers_rg_verify", 3, 4, 256, 4, "none", True, 0)]
+    gd = torch.Generator().manual_seed(DRIVER_SEED)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = {"float32": 0.0, "bfloat16": 0.0}
     for dtype, atol in ((torch.float32, ATOL_KERNEL),
                         (torch.bfloat16, ATOL_BF16)):
         tag = str(dtype).split(".")[-1]
         for name, B, S, C, K, act, tail, off in cases:
-            a = conv_args(g, dev, dtype, B, S, C, K, tail)
+            a = conv_args(gd if name.startswith("drivers_") else g, dev,
+                          dtype, B, S, C, K, tail)
             a["x"] = torch.cat([a["x"].flatten()[:off],
                                 a["x"].flatten()])[off:].view(B, S, C)
             y, new_tail = causal_conv1d(**a, activation=act)
@@ -1687,7 +1754,8 @@ def check_bf16_ulp(what, out, ref) -> dict:
 
 def check_ssd_chunk(g, dev) -> dict:
     """The SSD-chunk kernel against its plain version at mamba2-130m's
-    whole-prompt prefill shape (2 chunks of Q=256, H=24, N=128, P=64), at
+    whole-prompt prefill shape (2 chunks of Q=256, H=24, N=128, P=64) and
+    the drivers' training step (8 rows of one chunk), at
     ragged chunk lengths (a short prompt makes Q = S), and at the bf16
     kernel's tile edges: Q in {1, 15, 16, 17, 63, 64, 65, 129, 200, 256}
     (16-row warp tiles, 64-row query and key tiles), N in {16, 20, 128} (20
@@ -1702,7 +1770,10 @@ def check_ssd_chunk(g, dev) -> dict:
              ("q5", 1, 1, 5, 24, 128, 64),
              ("q200", 2, 1, 200, 24, 128, 64),
              ("q256_batch2", 2, 3, 256, 4, 128, 64),
-             ("smoke", 1, 3, 8, 4, 16, 32)]
+             ("smoke", 1, 3, 8, 4, 16, 32),
+             # phase 17's train_lm --full: a mamba2-130m step, 8 x 256
+             ("drivers_train_lm", 8, 1, 256, 24, 128, 64)]
+    gd = torch.Generator().manual_seed(DRIVER_SEED)
     edges = [(f"edge_q{Q}_n{N}_p{P}", 2, 2, Q, 3, N, P)
              for N in (16, 20, 128) for P in (24, 64)
              for Q in (1, 15, 16, 17, 63, 64, 65, 129, 200, 256)]
@@ -1715,7 +1786,8 @@ def check_ssd_chunk(g, dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[-1]
         for name, B, nc, Q, H, N, P in cases + edges:
-            a = ssd_inputs(g, dev, dtype, B, nc, Q, H, N, P)
+            a = ssd_inputs(gd if name.startswith("drivers_") else g, dev,
+                           dtype, B, nc, Q, H, N, P)
             y, st = ssd_chunk_fused(**a)
             torch.cuda.synchronize()
             ry, rst = ssd_chunk_ref(**a)
@@ -4674,6 +4746,116 @@ def serving_mesh_archs_main_path(dev) -> dict:
     return out
 
 
+# phase 17: the drivers' main() at their defaults (train_lm at its full
+# config, cut to DRIVER_LM_STEPS steps), and each one's launches, from
+# scripts/drivers_rehearsal.py: exact for the three training drivers (a
+# Dom-ST step 1 Pix-Con, with Pix-Con, and 60 LSTM steps, 24 steps a
+# variant and one held-out forward; the quickstart 300 steps and one; a
+# mamba2 step 48 conv1d and 48 SSD chunks under remat); the served
+# drivers' counts follow their streams (spec acceptance), so None: more
+# than 0. A kernel not named: 0. serve_lm's demo admits every prompt in
+# 8-token chunks, so no whole prefill, no local_attn or ssd_chunk launch.
+DRIVER_LM_STEPS = 20
+DRIVER_LAUNCHES = {"train_flood": {"pixcon": 25, "lstm_cell": 3000},
+                   "quickstart": {"pixcon": 301, "lstm_cell": 18060},
+                   "train_lm": {"conv1d": 48 * DRIVER_LM_STEPS,
+                                "ssd_chunk": 48 * DRIVER_LM_STEPS},
+                   "serve_lm": {"paged_attn": None, "conv1d": None},
+                   "ci_smoke": {"paged_attn": None}}
+
+
+def losses_fall(what: str, losses) -> None:
+    """Every loss finite, and the mean of the last quarter of the steps
+    (at least one) below the first step's, over the replicas."""
+    import numpy as np
+    a = np.asarray(losses, dtype=np.float64)
+    a = a.reshape(len(a), -1).mean(axis=1)
+    check(bool(np.isfinite(a).all()), f"{what}: a loss is not finite")
+    tail = a[-max(len(a) // 4, 1):].mean()
+    print(f"    {what}: loss {a[0]:.4f} at the first step, {tail:.4f} over "
+          f"the last {max(len(a) // 4, 1)}")
+    check(tail < a[0], f"{what}: losses did not fall ({a[0]} -> {tail})")
+
+
+def drivers_main_path(dev) -> dict:
+    """Phase 17. The user-facing drivers' ``main()`` on the card, each
+    with the launch counts set to 0 just before it and read just after:
+    ``examples/train_flood_torch.py`` at its defaults (23 watersheds x 400
+    days, 6 epochs, Dom-ST then Singlehead; the per-watershed NSE and
+    Dom-ST's share of wins printed, the share not gated),
+    ``quickstart_torch.py`` at its defaults (300 steps through
+    ``domst.make_train_step``), ``train_lm_torch.py --full`` for
+    ``DRIVER_LM_STEPS`` steps, ``serve_lm_torch.py`` (five families and
+    the shared-prefix workload), then ``scripts/ci_smoke_torch.py``'s four
+    checks in-process with their own assertions. Every loss and NSE
+    finite, both variants' training losses and the quickstart's falling,
+    the launches as ``DRIVER_LAUNCHES`` has them."""
+    import numpy as np
+    for sub in ("examples", "scripts"):
+        if str(ROOT / sub) not in sys.path:
+            sys.path.insert(0, str(ROOT / sub))
+    import ci_smoke_torch
+    import quickstart_torch
+    import serve_lm_torch
+    import train_flood_torch
+    import train_lm_torch
+    obs_dir = ROOT / "build" / "chip_smoke" / "obs"
+    runs = {
+        "train_flood": lambda: train_flood_torch.main([]),
+        "quickstart": lambda: quickstart_torch.main([]),
+        "train_lm": lambda: train_lm_torch.main(
+            ["--full", "--steps", str(DRIVER_LM_STEPS)]),
+        "serve_lm": lambda: serve_lm_torch.main([]),
+        "ci_smoke": lambda: {cmd: ci_smoke_torch.main(
+            ["--device", "cuda", cmd]
+            + (["--out-dir", str(obs_dir)] if cmd == "obs" else []),
+            run=ci_smoke_torch.run_in_process)
+            for cmd in ci_smoke_torch.CHECKS},
+    }
+    out = {"launches": {}, "wall_s": {}}
+    for name, run in runs.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run()
+        out["wall_s"][name] = round(time.perf_counter() - t0, 3)
+        got = out["launches"][name] = read_launches()
+        print(f"  {name}: {out['wall_s'][name]} s, launches {got}")
+        for k, c in got.items():
+            want = DRIVER_LAUNCHES[name].get(k, 0)
+            check(c > 0 if want is None else c == want,
+                  f"{name}: {c} {k} launches, want "
+                  f"{'> 0' if want is None else want}")
+        out[name] = res
+    flood = out["train_flood"]
+    for variant in ("domst", "domst-singlehead"):
+        nse = np.asarray(flood[variant]["nse"])
+        check(len(nse) == WATERSHEDS and bool(np.isfinite(nse).all()),
+              f"train_flood {variant}: NSE {nse}")
+        losses_fall(f"train_flood {variant}", flood[variant]["losses"])
+    q = out["quickstart"]
+    check(bool(np.isfinite(q["nse"])), f"quickstart: NSE {q['nse']}")
+    losses_fall("quickstart", q["losses"])
+    lm = out["train_lm"]["losses"]
+    check(len(lm) == DRIVER_LM_STEPS and bool(np.isfinite(lm).all()),
+          f"train_lm: losses {lm}")
+    for part in out["serve_lm"].values():
+        for arch, r in part.items():
+            check(r["tokens"] > 0 and r["device"] != "cpu",
+                  f"serve_lm {arch}: {r['tokens']} tokens on {r['device']}")
+    summary = {
+        "wall_s": out["wall_s"], "launches": out["launches"],
+        "nse": {v: [round(x, 6) for x in flood[v]["nse"]]
+                for v in ("domst", "domst-singlehead")},
+        "domst_win_share": flood["win_share"],
+        "quickstart_nse": round(q["nse"], 6),
+        "train_lm_loss": [round(lm[0], 4), round(lm[-1], 4)],
+        "prefix_hit_tokens": {a: r["prefix_hit_tokens"] for a, r in
+                              out["serve_lm"]["shared_prefix"].items()},
+        "ci_smoke": out["ci_smoke"]}
+    print("  " + json.dumps(summary))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4817,17 +4999,22 @@ def main() -> int:
     print(f"[16] serving on a 1x1 mesh: mamba2-130m in three modes, deepseek-moe-16b whole, and phase 14's trained mamba2-130m adopted by from_train_state (at {time.perf_counter() - T_START:.0f} s)")
     by_model.update({k: {kk: v[kk] for kk in ("launches", "profile")}
                      for k, v in serving_mesh_archs_main_path(dev).items()})
+    print(f"[17] the drivers: train_flood (Dom-ST and Singlehead, 23 watersheds x 400 days), quickstart, train_lm --full, serve_lm, ci_smoke_torch (at {time.perf_counter() - T_START:.0f} s)")
+    drivers = drivers_main_path(dev)["launches"]
     for res in by_model.values():
         for counts in res["launches"].values():
             for name, c in counts.items():
                 if name not in ("pixcon", "lstm_cell"):
                     launches[name] = launches.get(name, 0) + c
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        by_driver = {d: c[k["name"]] for d, c in drivers.items()
+                     if c[k["name"]]}
+        k["launches"] = launches[k["name"]] + sum(by_driver.values())
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
+        k.setdefault("launches_by_path", {})["drivers"] = by_driver
         if k["name"] in device_ms:
             k["device_ms_per_launch_on_main_path"] = device_ms[k["name"]]
-            k["launches_by_path"] = by_path[k["name"]]
+            k["launches_by_path"].update(by_path[k["name"]])
             k["training"]["device_ms_per_launch_on_main_path"] = \
                 train["device_ms"][k["name"]]
             continue
@@ -4839,7 +5026,7 @@ def main() -> int:
             arch: device_ms_per_launch(res["profile"]).get(k["name"])
             for arch, res in by_model.items()
             if arch in k["launches_by_mode"] and res["profile"]}
-    print(f"[17] all phases passed in {time.perf_counter() - T_START:.1f} s")
+    print(f"[18] all phases passed in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

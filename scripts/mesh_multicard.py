@@ -20,7 +20,10 @@ One process a card (a world of CARDS ranks on a ``TCPStore`` at
   off the mesh;
 * mamba2-130m at full width and depth, 8 x 1,024 tokens, bf16, block
   remat, the FSDP rules, 3 steps on (CARDS/2, 2): launches, collectives,
-  losses against one device's (bf16: 1e-2 relative), step times;
+  losses against one device's (bf16: 1e-2 relative), step times, and
+  the bytes each rank's card holds for the state after ``init_state``
+  (``torch.cuda.memory_allocated`` before and after), on and off the
+  mesh;
 * qwen3-moe-30b-a3b at smoke size (4 experts), float32, expert parallel
   on (1, CARDS): losses against one device's within 1e-4 relative;
 * ``serve``: qwen2-1.5b at full width through ``InferenceEngine(mesh=)``
@@ -155,6 +158,7 @@ def domst_case(mesh_shape, dev):
 def lm_case(spec, mesh_shape, dev, dtype, fsdp, rel):
     import numpy as np
     import torch
+    import torch.distributed as dist
     from chip_smoke import read_launches, reset_launches
     from repro_torch.configs import TrainConfig, get_config, smoke_variant
     from repro_torch.convert import flatten, unflatten
@@ -174,15 +178,22 @@ def lm_case(spec, mesh_shape, dev, dtype, fsdp, rel):
     out = {}
     for name, m in (("one device", None), ("mesh", mesh)):
         eng = Engine.for_lm(cfg, tc, device=dev, mesh=m, dtype=dtype)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
         state = eng.init_state(unflatten(
             {k: v.clone() for k, v in flatten(tree).items()}, like))
+        torch.cuda.synchronize()
+        # the bytes the state holds on this card: a rank's share on a mesh
+        held = [None] * dist.get_world_size()
+        dist.all_gather_object(held, torch.cuda.memory_allocated(dev) - before)
         batches = [eng.place_batch(src.host_batch(i))
                    for i in range(spec["steps"])]
         torch.cuda.synchronize()
         reset_launches()
         state, losses, times = _sync_steps(eng, state, batches)
         out[name] = {"launches": read_launches(),
-                     "losses": [float(x) for x in losses], "step_s": times}
+                     "losses": [float(x) for x in losses], "step_s": times,
+                     "state_bytes_by_rank": held}
         if m is not None:
             _, total, by_op = _comms(eng, state, batches[0])
             out[name].update(comms=total, comms_by_op=by_op)
@@ -196,7 +207,9 @@ def lm_case(spec, mesh_shape, dev, dtype, fsdp, rel):
            "launches": out["mesh"]["launches"],
            "comms_a_step": out["mesh"]["comms"],
            "comms_by_op": out["mesh"]["comms_by_op"],
-           "step_s": {n: r["step_s"] for n, r in out.items()}}
+           "step_s": {n: r["step_s"] for n, r in out.items()},
+           "state_bytes_by_rank": {n: r["state_bytes_by_rank"]
+                                   for n, r in out.items()}}
     ok = (l_err <= rel and bool(np.isfinite(out["mesh"]["losses"]).all())
           and out["mesh"]["launches"] == out["one device"]["launches"])
     return res, ok

@@ -196,3 +196,39 @@ def eval_metrics(params: Params, cfg: ModelConfig,
     """``evaluate`` minus the per-sample qhat series."""
     ev = evaluate(params, cfg, batch, ops)
     return {"nse": ev["nse"], "mse": ev["mse"]}
+
+
+# ---------------------------------------------------------------------------
+# Train steps: thin veneers over the engine (``train/engine.py``), with
+# donation off because callers of this seed-era signature own the params
+# and optimizer state and may reuse them across calls.
+# ---------------------------------------------------------------------------
+def _seed_step(engine):
+    def train_step(params, opt_state, batch):
+        st, m = engine.step(engine.wrap(params, opt_state),
+                            engine.place_batch(batch))
+        return st.params, st.opt_state, m
+    return train_step
+
+
+def make_train_step(cfg: ModelConfig, tc, *, mesh=None,
+                    device: str | torch.device = "cuda"):
+    """Single-watershed step ``train_step(params, opt_state, batch) ->
+    (params, opt_state, metrics)``: params with the replica axis R=1
+    (``init(cfg, g, 1)``), ``opt_state`` from ``make_optimizer(tc)[0]``,
+    a host or device batch of (B, ...) inputs; scalar metrics. The
+    caller's tensors are left as they were."""
+    from repro_torch.train import Engine
+    return _seed_step(Engine.for_domst(cfg, tc, donate=False, device=device,
+                                       mesh=mesh))
+
+
+def make_stacked_train_step(cfg: ModelConfig, tc, *, mesh=None,
+                            device: str | torch.device = "cuda"):
+    """Vectorised multi-watershed step: params and batches with a leading
+    watershed axis (W, ...), one replica per watershed (paper Fig. 2a);
+    per-watershed metrics (W,). ``mesh`` puts that axis on its data
+    axes."""
+    from repro_torch.train import Engine
+    return _seed_step(Engine.for_domst(cfg, tc, stacked=True, donate=False,
+                                       device=device, mesh=mesh))

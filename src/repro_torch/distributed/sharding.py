@@ -206,7 +206,10 @@ def distribute(value, mesh, placements: Placements,
                device: Optional[torch.device] = None,
                dtype: Optional[torch.dtype] = None) -> DTensor:
     """The DTensor whose global value is ``value`` (the same on every rank),
-    built by ``DTensor.from_local`` from this rank's slice: no collective."""
+    built by ``DTensor.from_local`` from this rank's slice: no collective.
+    The local block owns its storage: a block that is still a view into a
+    larger one (the value already on the device in the dtype asked for)
+    is copied, so that the rank keeps only its shard alive."""
     full = value if isinstance(value, torch.Tensor) \
         else torch.as_tensor(np.asarray(value))
     shape = full.shape
@@ -214,6 +217,8 @@ def distribute(value, mesh, placements: Placements,
     local = local_slice(full, mesh, placements)
     local = local.to(device=device or mesh.device_type,
                      dtype=dtype or local.dtype).contiguous()
+    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
+        local = local.clone()
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=shape, stride=stride)
 

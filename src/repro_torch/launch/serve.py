@@ -32,15 +32,18 @@ Two modes, as in the reference's ``repro/launch/serve.py``:
     each request under its own seed (``--queue file.json`` sets them per
     request); the reference's PRNG, so the streams are its own. Params
     come from the port's init (``--seed``) or the ``params`` subtree of
-    the reference's TrainState npz (``--ckpt``). It prints the
-    reference's JSON keys, ``stream_digest`` among them, and the device;
+    the reference's TrainState npz (``--ckpt``). It prints the first 12
+    tokens of the first two requests (``req N: [...]...``, the lines the
+    serve smoke checks compare), then one line of the reference's JSON
+    keys, ``stream_digest`` among them, and the device;
     ``--trace-out``, ``--metrics-out`` and ``--profile-dir`` write the
     request spans, the metric registry and a ``torch.profiler`` trace.
     ``--arch hubert-xlarge`` exits with the reference's message: an
     encoder has no decode path.
 
 Runs on the card unless ``--device cpu`` is given; without a card it
-raises.
+raises. ``serve(args)`` is the reference's dispatcher for callers that
+build ``args`` themselves (``examples/serve_lm_torch.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch domst
   PYTHONPATH=src python -m repro_torch.launch.serve --arch domst \\
@@ -312,6 +315,8 @@ def serve_lm(args) -> dict:
            "decode_gap_p99_s": round(gap_p99, 6),
            "max_decode_gap_s": round(st["max_decode_gap_s"], 6),
            "device": device_name(engine.device)}
+    for r in reqs[:2]:                   # before the JSON, which ends the run
+        print(f"req {r.rid}: {[int(t) for t in r.generated[:12]]}...")
     print(json.dumps(out))
     if args.trace_out:
         tracer.save(args.trace_out)
@@ -320,7 +325,7 @@ def serve_lm(args) -> dict:
     return out
 
 
-def main(argv=None) -> dict:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True,
                     help=f"one of {', '.join(list_configs())}")
@@ -408,13 +413,33 @@ def main(argv=None) -> dict:
                          "trace-event JSON")
     lm.add_argument("--metrics-out", default="",
                     help="dump the metric registry as JSONL")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def _dispatch(args: argparse.Namespace) -> dict:
     if args.arch.startswith("domst"):
         return serve_domst(args)
-    if args.arch not in list_configs():
+    return serve_lm(args)
+
+
+def serve(args) -> dict:
+    """The reference's dispatcher: ``args.arch`` starting with ``domst``
+    goes to the forecast, anything else to LM serving. ``args`` may be any
+    object with the CLI's fields (the reference's examples pass a plain
+    class); a field it lacks takes the CLI's default (``device``:
+    ``"cuda"``)."""
+    defaults = vars(build_parser().parse_args(["--arch", args.arch]))
+    return _dispatch(argparse.Namespace(**{k: getattr(args, k, v)
+                                           for k, v in defaults.items()}))
+
+
+def main(argv=None) -> dict:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if not args.arch.startswith("domst") and args.arch not in list_configs():
         ap.error(f"--arch {args.arch}: unknown; one of "
                  f"{', '.join(list_configs())}")
-    return serve_lm(args)
+    return _dispatch(args)
 
 
 if __name__ == "__main__":

@@ -70,7 +70,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.optimizer import Tree
-from repro_torch.train.state import TrainState, new_train_state
+from repro_torch.train.state import TrainState, new_rng, new_train_state
 
 Batch = Dict[str, torch.Tensor]
 LossFn = Callable[[Tree, Batch], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -305,6 +305,25 @@ class Engine:
                 self.tc, stacked=self.stacked))
         params = {k: as_f32(v, self.device) for k, v in params.items()}
         return new_train_state(params, self.tc, stacked=self.stacked)
+
+    def wrap(self, params: Tree, opt_state) -> TrainState:
+        """Adopt caller-owned ``params`` and ``opt_state`` (from
+        ``make_optimizer(tc)[0](params)``) into a TrainState: the shim under
+        the seed ``step(params, opt_state, batch)`` signature
+        (``domst.make_train_step``). Such engines run with
+        ``donate=False``, so the caller's tensors are never written. The
+        step counter starts at 0 and the rng leaf is drawn from
+        ``tc.seed``: these callers own no rng stream. On a mesh, full
+        tensors are distributed by the rules and DTensors (a previous
+        step's output) are taken as they are."""
+        first = next(iter(params.values()))
+        state = TrainState(params, opt_state,
+                           torch.zeros((), dtype=torch.int32,
+                                       device=self.device),
+                           new_rng(self.tc, first.shape[0], self.stacked))
+        if self.mesh is not None and not shd.is_distributed(first):
+            return self._placed(state)
+        return state
 
     # -- placement on the mesh ---------------------------------------------
     def _placed(self, state: TrainState) -> TrainState:

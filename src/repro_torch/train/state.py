@@ -35,7 +35,7 @@ class TrainState(NamedTuple):
     rng: torch.Tensor        # opaque uint32 (2,), or (R, 2) when stacked
 
 
-def _new_rng(tc: TrainConfig, replicas: int, stacked: bool) -> torch.Tensor:
+def new_rng(tc: TrainConfig, replicas: int, stacked: bool) -> torch.Tensor:
     """A fresh rng leaf of the reference's shape, from ``tc.seed``."""
     shape = (replicas, 2) if stacked else (2,)
     g = torch.Generator().manual_seed(tc.seed)
@@ -54,4 +54,4 @@ def new_train_state(params: Tree, tc: TrainConfig, *,
     dev = next(iter(params.values())).device
     return TrainState(params=params, opt_state=opt_init(params),
                       step=torch.zeros((), dtype=torch.int32, device=dev),
-                      rng=_new_rng(tc, replicas, stacked))
+                      rng=new_rng(tc, replicas, stacked))

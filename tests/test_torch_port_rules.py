@@ -310,3 +310,44 @@ def test_cpu_training_step_launches_no_kernel():
     new, m = eng.step(state, batch)
     assert int(new.step) == 1 and m["loss"].shape == (2,)
     assert (pixcon_gate.launches, lstm_cell_fused.launches) == before
+
+
+DRIVERS = [Path("examples") / f"{n}_torch.py"
+           for n in ("quickstart", "train_flood", "train_lm", "serve_lm")] \
+    + [Path("scripts") / "ci_smoke_torch.py"]
+
+
+@pytest.mark.parametrize("path", DRIVERS, ids=lambda p: p.stem)
+def test_drivers_import_no_jax_and_nothing_of_repro(path):
+    """Each ported driver, imported alone in a fresh process: no jax and
+    nothing of ``repro`` in ``sys.modules``."""
+    code = f"""
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("driver", {str(SRC.parent / path)!r})
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+assert callable(mod.main)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+"""
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", DRIVERS, ids=lambda p: p.stem)
+def test_drivers_raise_without_a_card(path, monkeypatch, capsys):
+    """Each driver's ``main`` runs on the card unless given ``--device
+    cpu``: without a card it raises before it does any work."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"{path.stem}_rules",
+                                                  SRC.parent / path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["prefix"] if path.stem == "ci_smoke_torch" else []
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
+    assert capsys.readouterr().out == ""

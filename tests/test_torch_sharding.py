@@ -19,6 +19,13 @@ process group: stand-in meshes of shapes (1,1), (2,2), (4,2), (16,16) and
   moments share) under both rule variants, and for every batch input.
 The placements hold the same assignment: ``Shard(d)`` on a mesh dim
 exactly where dim d takes that mesh axis (and it has more than one rank).
+
+Two cases spawn gloo ranks (``torch_dist_harness.py``): ``distribute``'s
+local block owns its storage (a first-dim block of a value already on
+the device in its dtype is copied, not kept as a view of the whole leaf),
+and after ``init_state`` of a stacked Dom-ST engine and an FSDP mamba2
+engine at (2, 2) each rank holds, leaf by leaf, its shard's share of the
+params and both moments.
 """
 from types import SimpleNamespace
 
@@ -29,6 +36,8 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from torch.distributed.tensor import Replicate, Shard  # noqa: E402
+
+import torch_dist_harness as harness  # noqa: E402
 
 from repro.configs import get_config as ref_config  # noqa: E402
 from repro.configs.base import INPUT_SHAPES  # noqa: E402
@@ -271,3 +280,28 @@ def test_lm_trees_resolve_as_reference(name, shape):
             got = _check_leaf(ax, shp, ax, shp, mesh, rmesh, rules, rrules)
             assert shd.resolve_axes(port_batch[k], (1,) + shp, mesh,
                                     rules) == (None,) + got
+
+
+# ---------------------------------------------------------------------------
+# Placed values own their storage (gloo ranks)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2)])
+def test_distribute_blocks_own_their_storage(mesh_shape, tmp_path):
+    world = mesh_shape[0] * mesh_shape[1]
+    for got in harness.spawn("distribute_storage", world, tmp_path,
+                             mesh_shape=mesh_shape):
+        for name, (storage, own, equal) in got.items():
+            assert equal, name
+            assert storage == own, (name, storage, own)
+
+
+def test_init_state_holds_each_ranks_share(tmp_path):
+    got = harness.spawn("init_state_bytes", 4, tmp_path, mesh_shape=(2, 2))
+    for rank in got:
+        for tree, leaves in rank.items():
+            held = sum(h for h, _, _ in leaves.values())
+            assert held == sum(s for _, s, _ in leaves.values()), tree
+            for k, (h, share, _) in leaves.items():
+                assert h == share, (tree, k, h, share)
+            # both mesh axes split some leaf of every tree
+            assert {w for _, _, w in leaves.values()} >= {2, 4}, tree

@@ -511,3 +511,88 @@ def _flat_leaves(tree, key=""):
     for k, v in items:
         out.update(_flat_leaves(v, f"{key}/{k}" if key else str(k)))
     return out
+
+
+def _held_bytes(tree: dict, mesh) -> dict:
+    """Each DTensor leaf's (bytes of its local block's storage, bytes of
+    its full value over its shard count, that count)."""
+    import math
+    from torch.distributed.tensor import Shard
+    out = {}
+    for k, v in tree.items():
+        ways = math.prod(mesh.size(i) for i, p in enumerate(v.placements)
+                         if isinstance(p, Shard))
+        out[k] = (v.to_local().untyped_storage().nbytes(),
+                  v.numel() * v.element_size() // ways, ways)
+    return out
+
+
+def distribute_storage(rank, world, *, mesh_shape):
+    """``distribute``'s local blocks of a first-dim split, a second-dim
+    split and a replicated leaf, each from a full value already on the
+    device in the target dtype: (storage bytes, own bytes) of each."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    mesh = _mesh(mesh_shape)
+    full = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
+    out = {}
+    for name, pl in (("dim0", (shd.Shard(0), shd.Replicate())),
+                     ("dim1", (shd.Replicate(), shd.Shard(1))),
+                     ("both", (shd.Shard(0), shd.Shard(1))),
+                     ("replicated", (shd.Replicate(), shd.Replicate()))):
+        x = shd.distribute(full, mesh, pl, torch.device("cpu"),
+                           torch.float32)
+        loc = x.to_local()
+        out[name] = (loc.untyped_storage().nbytes(),
+                     loc.numel() * loc.element_size(),
+                     bool(torch.equal(x.full_tensor(), full)))
+    return out
+
+
+def init_state_bytes(rank, world, *, mesh_shape):
+    """A stacked Dom-ST engine (4 watersheds) and a mamba2-130m engine with
+    the FSDP rules, both at smoke size, after ``init_state`` from full
+    params: ``_held_bytes`` of their params and both moments."""
+    import torch
+    from repro_torch.configs import TrainConfig, get_config, smoke_variant
+    from repro_torch.core import domst
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import Engine
+    mesh = _mesh(mesh_shape)
+    g = torch.Generator().manual_seed(0)
+    out = {}
+    cfg = smoke_variant(get_config("domst"))
+    eng = Engine.for_domst(cfg, TrainConfig(), stacked=True, device="cpu",
+                           mesh=mesh)
+    st = eng.init_state(domst.init(cfg, g, 4))
+    lm = smoke_variant(get_config("mamba2-130m"))
+    leng = Engine.for_lm(lm, TrainConfig(fsdp=True), device="cpu", mesh=mesh)
+    lst = leng.init_state(tfm.init(lm, g))
+    for name, s in (("domst", st), ("mamba2", lst)):
+        for part, tree in (("params", s.params), ("mu", s.opt_state.mu),
+                           ("nu", s.opt_state.nu)):
+            out[f"{name} {part}"] = _held_bytes(tree, mesh)
+    return out
+
+
+def seed_steps(rank, world, *, mesh_shape, params, batches, tc):
+    """``domst.make_stacked_train_step(mesh=)`` (smoke Dom-ST) from full
+    host params and a fresh optimizer state over ``batches``: per-step
+    host losses and the final host params."""
+    import torch
+    from repro_torch.configs import TrainConfig, get_config, smoke_variant
+    from repro_torch.core import domst
+    from repro_torch.distributed.sharding import full_host
+    from repro_torch.optim import make_optimizer
+    cfg = smoke_variant(get_config("domst"))
+    tc = TrainConfig(**tc)
+    step = domst.make_stacked_train_step(cfg, tc, mesh=_mesh(mesh_shape),
+                                         device="cpu")
+    p = {k: torch.from_numpy(v) for k, v in params.items()}
+    opt = make_optimizer(tc)[0](p)
+    losses = []
+    for b in batches:
+        p, opt, m = step(p, opt, b)
+        losses.append(full_host(m["loss"]))
+    return {"losses": losses, "params": {k: full_host(v) for k, v in p.items()},
+            "placements": {k: str(v.placements) for k, v in p.items()}}
