@@ -26,6 +26,17 @@ an event recorded after it is waited on by the consumer's stream before
 the batch is handed over, and each tensor is marked as used by that
 stream (``record_stream``), so the allocator does not give its memory to
 the worker's next batch while the step may still read it.
+
+While ``obs.profiler.active()`` the loader records into its engine's
+registry: on the worker, ``loader.host_batch`` (the source's gather and
+stack) and ``loader.place`` (``place_batch`` and the side stream's
+blocking copy) as spans (``<name>_s``; the copy's device seconds
+``loader.place_device_s`` on the card), with the counters
+``loader.h2d_bytes`` (the host batch's bytes placed) and
+``loader.h2d_pageable_bytes`` (those not in pinned memory); on the
+consumer, ``loader.wait`` around its wait for a batch (the synchronous
+path's whole placement), and the histogram ``loader.ready``: the batches
+already queued when it asked (0: the step waited).
 """
 from __future__ import annotations
 
@@ -36,6 +47,9 @@ from typing import Dict, Iterator, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
+
+from repro_torch.obs import profiler
+from repro_torch.obs import registry as obs_registry
 
 
 @runtime_checkable
@@ -84,13 +98,32 @@ class ShardedLoader:
             return itertools.count(self.cursor)
         return range(self.cursor, self.cursor + int(self.num_steps))
 
+    def _registry(self):
+        return getattr(self.engine, "registry", None) or obs_registry.default()
+
     def _place(self, step: int):
-        return self.engine.place_batch(self.source.host_batch(step))
+        reg, dev = self._registry(), torch.device(self.engine.device)
+        with profiler.span("loader.host_batch", reg):
+            host = self.source.host_batch(step)
+        with profiler.span("loader.place", reg, dev):
+            batch = self.engine.place_batch(host)
+        if profiler.active():
+            vals = [v if isinstance(v, torch.Tensor) else np.asarray(v)
+                    for v in host.values()]
+            reg.add("loader.h2d_bytes", sum(v.nbytes for v in vals))
+            reg.add("loader.h2d_pageable_bytes", sum(
+                v.nbytes for v in vals
+                if not (isinstance(v, torch.Tensor) and v.is_pinned())))
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        reg = self._registry()
         if self.prefetch <= 0:                 # synchronous reference path
             for s in self._steps():
-                batch = self._place(s)
+                with profiler.span("loader.wait", reg):
+                    batch = self._place(s)
+                if profiler.active():
+                    reg.record("loader.ready", 0)
                 self.cursor = s + 1
                 yield batch
             return
@@ -134,13 +167,20 @@ class ShardedLoader:
         t = threading.Thread(target=worker, name="sharded-loader-prefetch",
                              daemon=True)
         t.start()
+        # a finite stream ends after its last batch, not at the worker's
+        # end marker, so each wait recorded is the wait for a batch
+        left = None if self.num_steps is None else int(self.num_steps)
         try:
-            while True:
-                tag, item, ready = q.get()
+            while left != 0:
+                queued = q.qsize()
+                with profiler.span("loader.wait", reg):
+                    tag, item, ready = q.get()
                 if tag is self._DONE:
                     return
                 if tag is self._ERR:
                     raise item
+                if profiler.active():
+                    reg.record("loader.ready", queued)
                 if ready is not None:
                     cur = torch.cuda.current_stream(dev)
                     cur.wait_event(ready)
@@ -149,6 +189,8 @@ class ShardedLoader:
                          else v).record_stream(cur)
                 self.cursor = tag + 1
                 yield item
+                if left is not None:
+                    left -= 1
         finally:
             stop.set()
             t.join(timeout=10)

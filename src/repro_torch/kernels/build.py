@@ -8,6 +8,12 @@ covers the source, the shared headers and the flags, so an edit rebuilds.
 waits for all of them. No PyTorch headers are compiled, so a build takes
 seconds, and nothing here needs ``ninja``.
 
+Each ``build()`` records into the process's registry
+(``obs.registry.default()``), tracing on or off, since it runs once a
+process: its seconds as a sample of ``kernels.build_s``, and per library
+the counter ``kernels.built.<name>`` (``nvcc`` ran) or
+``kernels.found.<name>`` (built already).
+
 Nothing is imported or compiled when this module is imported: the CPU
 tests import every module of the port on a machine with no ``nvcc``.
 """
@@ -18,8 +24,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Sequence
+
+from repro_torch.obs import registry as obs_registry
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -58,17 +67,21 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
     ``nvcc`` per source, all started together. The compiler's output
     (``-Xptxas -v``: registers, shared memory, spills) goes to
     ``lib<name>-<hash>.log`` beside the library. Raises if any fails."""
+    t0 = time.perf_counter()
+    reg = obs_registry.default()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
         out = lib_path(name)
         if out.exists():
+            reg.add(f"kernels.found.{name}")
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, out, tmp, proc))
+        reg.add(f"kernels.built.{name}")
     errors = []
     for name, out, tmp, proc in jobs:
         log, _ = proc.communicate()
@@ -78,6 +91,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
             errors.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
         else:
             os.replace(tmp, out)      # atomic: a concurrent build is safe
+    reg.record("kernels.build_s", time.perf_counter() - t0)
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return {name: lib_path(name) for name in names}

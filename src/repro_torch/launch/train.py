@@ -46,7 +46,10 @@ watersheds on the data axes, and every rank prints the same record.
 It prints the reference's per-epoch lines and final JSON record, plus the
 device. Runs on the card unless ``--device cpu`` is given; without a card
 it raises. ``--profile-dir DIR`` writes a ``torch.profiler`` trace of
-the run to ``DIR/trace.json``.
+the run to ``DIR/trace.json``. A run records into a registry of its own
+(the process's default while it runs, so the engine, its loader and the
+kernel builds record there too), with the spans switched on
+(``obs.profiler.recording``): ``--metrics-out`` dumps it.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch domst
   PYTHONPATH=src python -m repro_torch.launch.train --arch domst \\
@@ -66,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -89,39 +93,40 @@ from repro_torch.distributed.sharding import full_host
 from repro_torch.metrics import Meter
 from repro_torch.models import transformer as tfm
 from repro_torch.obs import MetricRegistry, profiler
+from repro_torch.obs import registry as obs_registry
 from repro_torch.train import Engine
 
 # the held-out batch's seed offset, the reference's
 EVAL_SEED_OFFSET = 2**31
 
 
+def _recorded(train):
+    """``train(args, registry)`` as ``train(args)``, with a new registry
+    as the process's default and the spans recording for the run."""
+    @functools.wraps(train)
+    def run(args):
+        registry = MetricRegistry()
+        with obs_registry.as_default(registry), profiler.recording():
+            return train(args, registry)
+    return run
+
+
 def _timed(loader, registry: MetricRegistry):
-    """Iterate ``loader`` while measuring, per step, the host-side wait for
-    the next batch (``train.loader_wait_s``: nonzero means the step outran
-    the prefetch) and the wall clock of the loop body (``train.step_s``:
-    dispatch plus whatever sync the body does). The last wait also lands
-    in the ``train.loader_wait_last_s`` gauge."""
-    wait_h = registry.histogram("train.loader_wait_s")
+    """Iterate ``loader`` while measuring, per step, the wall clock of the
+    loop body (``train.step_s``: dispatch plus whatever sync the body
+    does). The wait for each batch is the loader's own
+    ``loader.wait_s``: nonzero means the step outran the prefetch."""
     step_h = registry.histogram("train.step_s")
-    wait_g = registry.gauge("train.loader_wait_last_s")
-    it = iter(loader)
-    while True:
+    for batch in loader:
         t = time.perf_counter()
-        try:
-            batch = next(it)
-        except StopIteration:
-            return
-        now = time.perf_counter()
-        wait_h.record(now - t)
-        wait_g.set(now - t)
         yield batch
-        step_h.record(time.perf_counter() - now)
+        step_h.record(time.perf_counter() - t)
 
 
 def _train_metrics(registry: MetricRegistry) -> dict:
     """Step-timing summary for the result JSON (empty before any step)."""
     step_h = registry.histogram("train.step_s")
-    wait_h = registry.histogram("train.loader_wait_s")
+    wait_h = registry.histogram("loader.wait_s")
     if not step_h.count:
         return {}
     return {"step_p50_s": round(step_h.quantile(50), 6),
@@ -148,7 +153,8 @@ def _init(cfg, seed: int, replicas: int) -> domst.Params:
     return domst.init(cfg, torch.Generator().manual_seed(seed), replicas)
 
 
-def train_domst(args) -> dict:
+@_recorded
+def train_domst(args, registry) -> dict:
     cfg = get_config(args.arch)
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps or 2000,
                      warmup_steps=50, grad_accum=args.accum_steps,
@@ -158,8 +164,8 @@ def train_domst(args) -> dict:
     # (stacked_test_batch / train_test_split) stays held out
     ip = InputPipeline([train_split(w) for w in windows],
                        batch_size=args.batch_size, seed=args.seed)
-    registry = MetricRegistry()
     meter = Meter(registry=registry, prefix="train.")
+    t0 = time.perf_counter()        # wall_s: from here, as before recording
 
     mesh = _make_mesh(args.mesh, args.device)
 
@@ -197,7 +203,7 @@ def train_domst(args) -> dict:
                 meter.update(loss=float(np.mean(full_host(m["loss"]))))
                 print(f"epoch {step // spe - 1} mean loss "
                       f"{meter.last('loss'):.4f} "
-                      f"({meter.elapsed():.1f}s)", flush=True)
+                      f"({time.perf_counter() - t0:.1f}s)", flush=True)
         ev = engine.eval_step(state, held_out)
         nses = [float(x) for x in full_host(ev["nse"])]
     else:                               # sequential: one watershed at a time
@@ -222,12 +228,13 @@ def train_domst(args) -> dict:
             nses.append(float(full_host(ev["nse"])))
             print(f"watershed {w.watershed_id} loss "
                   f"{float(full_host(m['loss'])):.4f} "
-                  f"nse {nses[-1]:.4f} ({meter.elapsed():.1f}s)", flush=True)
+                  f"nse {nses[-1]:.4f} ({time.perf_counter() - t0:.1f}s)",
+                  flush=True)
 
     result = {"arch": args.arch, "mode": args.mode,
               "accum_steps": args.accum_steps, "prefetch": args.prefetch,
               "mean_nse": float(np.mean(nses)), "nse": nses,
-              "wall_s": meter.elapsed(), **_train_metrics(registry),
+              "wall_s": time.perf_counter() - t0, **_train_metrics(registry),
               "device": device_name(engine.device)}
     print(json.dumps(result, indent=2))
     if args.metrics_out:
@@ -238,7 +245,8 @@ def train_domst(args) -> dict:
     return result
 
 
-def train_lm(args):
+@_recorded
+def train_lm(args, registry):
     """LM training as the reference's ``train_lm``; returns (the printed
     record, the engine, the final state): the live state is the
     train-to-serve hand-off (``InferenceEngine.from_train_state``)."""
@@ -281,8 +289,8 @@ def train_lm(args):
             seed=args.seed + EVAL_SEED_OFFSET))
     loader = ShardedLoader(source, engine, prefetch=args.prefetch,
                            start_step=start, num_steps=args.steps)
-    registry = MetricRegistry()
     meter = Meter(registry=registry, prefix="train.")
+    t0 = time.perf_counter()        # wall_s: from here, as before recording
     losses = []
     for batch in _timed(loader, registry):
         state, m = engine.step(state, batch)
@@ -294,7 +302,7 @@ def train_lm(args):
                   f"{float(full_host(ev['loss'])):.4f}", flush=True)
         if i % max(args.steps // 10, 1) == 0:
             print(f"step {i:5d} loss {losses[-1]:.4f} "
-                  f"({meter.elapsed():.1f}s)", flush=True)
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
         else None
     print("peak memory " + (f"{peak / 1e9:.3f} GB (max_memory_allocated)"
@@ -302,7 +310,7 @@ def train_lm(args):
           flush=True)
     result = {"arch": cfg.name, "first_loss": losses[0],
               "last_loss": losses[-1], "steps": int(state.step),
-              "prefetch": args.prefetch, "wall_s": meter.elapsed(),
+              "prefetch": args.prefetch, "wall_s": time.perf_counter() - t0,
               **_train_metrics(registry), "params": n_params,
               "tokens_per_step": args.batch_size * args.seq_len,
               "peak_memory_bytes": peak, "device": device_name(dev)}
@@ -355,9 +363,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "training (the loader resumes the batch stream at "
                          "its step)")
     ap.add_argument("--metrics-out", default="",
-                    help="dump the metric registry as JSONL (per-step "
-                         "timing histogram train.step_s, loader-wait "
-                         "histogram/gauge, metered loss)")
+                    help="dump the metric registry as JSONL (the loop "
+                         "body's train.step_s, the engine.* and loader.* "
+                         "spans and counters, kernels.* where a build ran, "
+                         "metered loss)")
     ap.add_argument("--profile-dir", default="",
                     help="open a torch.profiler window around the run and "
                          "write its trace to DIR/trace.json")

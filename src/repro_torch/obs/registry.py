@@ -1,7 +1,14 @@
 """Metric registry: counters, gauges, streaming histograms, labeled series.
 
 A copy of the reference's ``repro/obs/registry.py`` (host code: numpy, no JAX), kept
-bit-equal in behaviour by ``tests/test_torch_serve_lm.py``.
+bit-equal in behaviour by ``tests/test_torch_serve_lm.py``. The port adds
+what its training spans need (``obs/profiler.py::span``): ``record`` and
+``add``, which threads may call at once (the loader's worker records
+beside the step); device samples whose value a pair of CUDA events gives
+once the device has passed them (``defer``, resolved by ``poll`` without
+waiting and by ``flush``, which ``snapshot`` and ``dump_jsonl`` call);
+and one process-wide registry (``default``, swapped by ``as_default``)
+for code that holds none of its own, such as the kernel builds.
 
 One :class:`MetricRegistry` instance is the single store for every
 host-side measurement a subsystem makes — the serving scheduler's
@@ -33,8 +40,10 @@ bit-parity tests (``tests/test_obs.py``) trivially true.
 from __future__ import annotations
 
 import json
+import threading
 import time
 from collections.abc import MutableMapping
+from contextlib import contextmanager
 from typing import Any, Dict, Iterable, Iterator, Mapping, Tuple
 
 import numpy as np
@@ -237,6 +246,8 @@ class MetricRegistry:
         self._series: Dict[str, Series] = {}
         self._groups: Dict[str, StatGroup] = {}
         self._t0 = time.perf_counter()
+        self._lock = threading.Lock()
+        self._deferred: list = []       # (name, start event, end event)
 
     # -- get-or-create accessors ------------------------------------------
     def counter(self, name: str) -> Counter:
@@ -271,10 +282,53 @@ class MetricRegistry:
     def elapsed(self) -> float:
         return time.perf_counter() - self._t0
 
+    # -- recording from several threads -------------------------------------
+    def record(self, name: str, v: float) -> None:
+        """A sample of the histogram ``name``, under the registry's lock."""
+        with self._lock:
+            self.histogram(name).record(v)
+
+    def add(self, name: str, n: float = 1.0) -> None:
+        """``n`` more on the counter ``name``, under the registry's lock."""
+        with self._lock:
+            self.counter(name).inc(n)
+
+    def defer(self, name: str, start, end) -> None:
+        """A sample of ``name``: the seconds between two recorded CUDA
+        events (anything with ``query``, ``synchronize`` and
+        ``elapsed_time`` in ms), taken once the device has passed ``end``."""
+        with self._lock:
+            self._deferred.append((name, start, end))
+
+    def poll(self) -> None:
+        """Record the deferred samples whose events the device has passed;
+        never waits for it."""
+        if self._deferred:
+            self._resolve(wait=False)
+
+    def flush(self) -> None:
+        """Wait for the device to pass every deferred sample's events and
+        record them all. Outside a step: readers and dumps call it."""
+        if self._deferred:
+            self._resolve(wait=True)
+
+    def _resolve(self, wait: bool) -> None:
+        with self._lock:
+            left = []
+            for name, a, b in self._deferred:
+                if wait:
+                    b.synchronize()
+                elif not (b.query() and a.query()):
+                    left.append((name, a, b))
+                    continue
+                self.histogram(name).record(a.elapsed_time(b) * 1e-3)
+            self._deferred = left
+
     # -- export ------------------------------------------------------------
     def snapshot(self) -> Dict[str, Any]:
         """Flat ``{dotted name: value}`` view: scalars directly,
         histograms as summary dicts, series as ``name{label}`` keys."""
+        self.flush()
         out: Dict[str, Any] = {}
         for name, c in self._counters.items():
             out[name] = c.value
@@ -312,9 +366,31 @@ class MetricRegistry:
         (count/sum/min/max/mean/p50/p90/p99), series one line per label.
         The schema ``benchmarks/README.md`` documents and the ``obs`` CI
         smoke validates."""
+        self.flush()
         with open(path, "w") as f:
             for name, doc in self._lines():
                 f.write(json.dumps({"name": name, **_finite(doc)}) + "\n")
+
+
+_default = MetricRegistry()
+
+
+def default() -> MetricRegistry:
+    """The process-wide registry: where an ``Engine`` built without one,
+    its loader and the kernel builds record."""
+    return _default
+
+
+@contextmanager
+def as_default(registry: MetricRegistry):
+    """``registry`` as the process-wide one for the block (a launcher's
+    run), the previous one again after it."""
+    global _default
+    prev, _default = _default, registry
+    try:
+        yield registry
+    finally:
+        _default = prev
 
 
 def _finite(doc: Dict[str, Any]) -> Dict[str, Any]:

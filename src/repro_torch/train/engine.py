@@ -52,10 +52,22 @@ integer, and the front ends' ``frames`` and ``patches`` stay float32
 (``transformer.embed_inputs`` casts them, as the reference does). On the
 card the causal conv1d, SSD-chunk and local-attention kernels run the
 forward, and autograd through their plain versions the backward.
+
+While ``obs.profiler.active()`` the step records spans into the engine's
+registry (``registry=``, the process-wide one by default):
+``engine.step`` around the whole step, ``engine.forward`` around each
+microbatch's loss, ``engine.backward`` around its gradient (with block
+remat, the recompute too) and their placement, ``engine.optimizer``
+around the update and ``engine.eval_step`` around an evaluation, each as
+host seconds ``<name>_s`` and on the card device seconds
+``<name>_device_s``; and the counters ``engine.steps`` and
+``engine.microbatches``. Nothing in a step waits for the device for
+them, and with tracing off they record nothing.
 """
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -68,6 +80,8 @@ from repro_torch.core import domst
 from repro_torch.device import as_f32, resolve_device
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as tfm
+from repro_torch.obs import profiler
+from repro_torch.obs import registry as obs_registry
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.optimizer import Tree
 from repro_torch.train.state import TrainState, new_rng, new_train_state
@@ -114,8 +128,13 @@ def _microbatches(batch: Batch, accum: int) -> List[Batch]:
             for i in range(accum)]
 
 
+def _no_span(name: str):
+    return nullcontext()
+
+
 def accumulate_grads(loss_fn: LossFn, params: Tree, batch: Batch, accum: int,
-                     loss_placements=()) -> Tuple[Tree, torch.Tensor, Dict]:
+                     loss_placements=(), *, span=_no_span
+                     ) -> Tuple[Tree, torch.Tensor, Dict]:
     """(grads, loss (R,), metrics) for one macrostep of ``loss_fn``.
 
     The gradient is that of ``loss.sum()`` over the replicas, which share
@@ -123,26 +142,31 @@ def accumulate_grads(loss_fn: LossFn, params: Tree, batch: Batch, accum: int,
     microbatches; grads, losses and metrics accumulate in float32 and are
     averaged. The caller checks that the axis divides. On a mesh the loss
     is first redistributed to ``loss_placements`` (the replica axis's),
-    and each gradient to its param's placements.
+    and each gradient to its param's placements. ``span(name)`` opens
+    the context each microbatch's ``engine.forward`` and
+    ``engine.backward`` run in (the engine's profiler spans).
     """
     names = list(params)
     leaves = [params[k].detach().requires_grad_() for k in names]
     tree = dict(zip(names, leaves))
 
     def value_and_grad(b: Batch):
-        loss, mets = loss_fn(tree, b)
-        if shd.is_distributed(loss):
-            # the gradient of loss.sum(), seeded per replica so that the
-            # loss needs no reduction over the replica axis first
-            loss = shd.to_placements(loss, loss_placements)
-            grads = torch.autograd.grad(loss, leaves, torch.ones_like(loss),
-                                        allow_unused=True)
-        else:
-            grads = torch.autograd.grad(loss.sum(), leaves,
-                                        allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None
-                 else shd.to_placements(g, getattr(p, "placements", ()))
-                 for p, g in zip(leaves, grads)]
+        with span("engine.forward"):
+            loss, mets = loss_fn(tree, b)
+        with span("engine.backward"):
+            if shd.is_distributed(loss):
+                # the gradient of loss.sum(), seeded per replica so that
+                # the loss needs no reduction over the replica axis first
+                loss = shd.to_placements(loss, loss_placements)
+                grads = torch.autograd.grad(loss, leaves,
+                                            torch.ones_like(loss),
+                                            allow_unused=True)
+            else:
+                grads = torch.autograd.grad(loss.sum(), leaves,
+                                            allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None
+                     else shd.to_placements(g, getattr(p, "placements", ()))
+                     for p, g in zip(leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in mets.items()}, grads
 
     if accum == 1:
@@ -212,11 +236,15 @@ class Engine:
                  eval_fn: Optional[Callable[[Tree, Batch], Dict]] = None,
                  cfg: Optional[ModelConfig] = None,
                  mesh=None, param_axes: Optional[Dict[str, tuple]] = None,
-                 batch_axes: Optional[Dict[str, tuple]] = None):
+                 batch_axes: Optional[Dict[str, tuple]] = None,
+                 registry: Optional[obs_registry.MetricRegistry] = None):
         """``cfg``: an LM's config (``for_lm``), whose per-layer tree the
         params are kept flat for; None for Dom-ST's flat params.
         ``param_axes`` and ``batch_axes`` (the logical axes of each flat
-        param and batch input, replica axis first) are read on a mesh."""
+        param and batch input, replica axis first) are read on a mesh.
+        ``registry``: where the step's spans record (and the loader's)."""
+        self.registry = (registry if registry is not None
+                         else obs_registry.default())
         self.loss_fn = loss_fn
         self.eval_fn = eval_fn
         self.tc = tc
@@ -245,7 +273,7 @@ class Engine:
                   stacked: bool = False, accum_steps: Optional[int] = None,
                   donate: bool = True, device: str | torch.device = "cuda",
                   ops: domst.KernelOps = domst.KERNELS,
-                  mesh=None) -> "Engine":
+                  mesh=None, registry=None) -> "Engine":
         """Dom-ST flood engine (sequential or stacked/IP-D). ``ops=PLAIN``
         serves only to hold the kernels' run against the plain one."""
         axes = (domst.stacked_param_specs(cfg) if stacked else
@@ -255,14 +283,15 @@ class Engine:
                    device=device,
                    eval_fn=lambda p, b: domst.eval_metrics(p, cfg, b, ops),
                    mesh=mesh, param_axes=axes,
-                   batch_axes=domst.batch_specs(stacked))
+                   batch_axes=domst.batch_specs(stacked), registry=registry)
 
     @classmethod
     def for_lm(cls, cfg: ModelConfig, tc: TrainConfig, *,
                accum_steps: Optional[int] = None, donate: bool = True,
                device: str | torch.device = "cuda",
                dtype: torch.dtype = torch.bfloat16,
-               ops: tfm.KernelOps = tfm.KERNELS, mesh=None) -> "Engine":
+               ops: tfm.KernelOps = tfm.KERNELS, mesh=None,
+               registry=None) -> "Engine":
         """LM engine for any LM config: the loss is
         ``transformer.lm_loss`` in ``dtype`` activations, with block remat
         unless ``tc.remat`` is ``"none"``; ``eval_fn`` returns the loss and
@@ -285,7 +314,7 @@ class Engine:
         return cls(lm, tc, accum_steps=accum_steps, donate=donate,
                    device=device, eval_fn=lm_eval, cfg=cfg, mesh=mesh,
                    param_axes=tfm.flat_param_specs(cfg),
-                   batch_axes=lm_batch_axes(cfg))
+                   batch_axes=lm_batch_axes(cfg), registry=registry)
 
     # -- state lifecycle ---------------------------------------------------
     def init_state(self, params: Tree) -> TrainState:
@@ -435,31 +464,41 @@ class Engine:
     def _unstack(self, mets: Dict) -> Dict:
         return mets if self.stacked else {k: v[0] for k, v in mets.items()}
 
+    def _span(self, name: str):
+        return profiler.span(name, self.registry, self.device)
+
     def step(self, state: TrainState, batch: Batch
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One (macro)step on a batch from ``place_batch``: ``(state,
         batch) -> (new state, metrics)``; the per-replica minibatch dim must
         divide ``accum_steps``. A donating engine updates ``state``'s
         tensors: only the returned state may be used after it."""
-        if self.accum > 1:
-            mb = next(iter(batch.values())).shape[1]
-            if mb % self.accum:
-                raise ValueError(
-                    f"minibatch dim {mb} not divisible by "
-                    f"accum_steps={self.accum}")
-        with self._context():
-            grads, loss, mets = accumulate_grads(
-                self.loss_fn, state.params, batch, self.accum,
-                self._loss_placements(state))
-            params, opt_state, om = self._opt_update(state.params, grads,
-                                                     state.opt_state)
-            return (TrainState(params, opt_state, state.step + 1, state.rng),
-                    self._unstack({**mets, **om, "loss": loss}))
+        with self._span("engine.step"):
+            if self.accum > 1:
+                mb = next(iter(batch.values())).shape[1]
+                if mb % self.accum:
+                    raise ValueError(
+                        f"minibatch dim {mb} not divisible by "
+                        f"accum_steps={self.accum}")
+            if profiler.active():
+                self.registry.add("engine.steps")
+                self.registry.add("engine.microbatches", self.accum)
+            with self._context():
+                grads, loss, mets = accumulate_grads(
+                    self.loss_fn, state.params, batch, self.accum,
+                    self._loss_placements(state), span=self._span)
+                with self._span("engine.optimizer"):
+                    params, opt_state, om = self._opt_update(
+                        state.params, grads, state.opt_state)
+                return (TrainState(params, opt_state, state.step + 1,
+                                   state.rng),
+                        self._unstack({**mets, **om, "loss": loss}))
 
     def eval_step(self, state: TrainState, batch: Batch) -> Dict:
         """Held-out metrics on the live state, no update: per-replica NSE and
         MSE for Dom-ST (scalars in single mode)."""
         if self.eval_fn is None:
             raise ValueError("engine was built without an eval_fn")
-        with torch.no_grad(), self._context():
+        with self._span("engine.eval_step"), torch.no_grad(), \
+                self._context():
             return self._unstack(self.eval_fn(state.params, batch))

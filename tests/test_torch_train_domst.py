@@ -415,7 +415,7 @@ def test_train_cli_trains_and_hands_off_to_serve(tmp_path, capsys):
     assert res["device"] == "cpu" and res["step_p50_s"] > 0
     assert {"loader_wait_p99_s", "loader_wait_s", "wall_s"} <= res.keys()
     names = {json.loads(line)["name"] for line in open(metrics)}
-    assert {"train.step_s", "train.loader_wait_s", "train.loss"} <= names
+    assert {"train.step_s", "loader.wait_s", "train.loss"} <= names
     served = tserve.main(["--arch", "domst", "--watersheds", "2", "--days",
                           "150", "--device", "cpu", "--ckpt", ckpt])
     assert served["restored"]
